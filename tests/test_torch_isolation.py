@@ -1,0 +1,90 @@
+"""Port hygiene: the PyTorch package stands alone.
+
+``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor anything of
+the JAX package ``repro``; importing the port builds no kernel; and the
+smoke script refuses to run (non-zero exit, no result line) without a CUDA
+card or outside a checkout of the repository.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def _run(code: str, cwd=ROOT, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=cwd,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_runs_with_jax_blocked_and_loads_no_reference_module():
+    proc = _run("""
+        import sys
+        sys.modules["jax"] = None          # any import of jax now fails
+        import numpy as np
+        import repro_torch.core.distributed, repro_torch.core.engine
+        import repro_torch.core.convert
+        from repro_torch.core.engine import SMTreeEngine
+        from repro_torch.data.datagen import clustered
+        X = clustered(500, dims=6, seed=0)
+        eng = SMTreeEngine.build(X, capacity=8, device="cpu")
+        res = eng.knn(X[:4] + 0.01, k=3, max_frontier=64)
+        eng.insert(X[0] + 0.5, 10_000)
+        assert eng.delete(X[0] + 0.5, 10_000)
+        assert eng.validate()
+        bad = sorted(m for m, v in sys.modules.items() if v is not None and
+                     (m == "jax" or m.startswith("jax.") or m == "repro"
+                      or m.startswith("repro.")))
+        assert not bad, bad
+        assert "repro_torch.kernels._build" not in sys.modules  # nothing built
+        print("ok", res.dists.shape[1])
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok", "3"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_no_source_of_the_port_imports_jax_or_repro():
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f}: imports {mod}"
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import runpy, sys, torch; torch.cuda.is_available = lambda: False; "
+         "sys.argv = ['chip_smoke.py']; runpy.run_path('chip_smoke.py', run_name='__main__')"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
