@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch/CUDA port of the SM-tree engine.
+"""On-card smoke test of the PyTorch/CUDA port.
 
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; it exits non-zero without them.  It imports only
 ``repro_torch`` (from ``src/`` beside this file), torch, numpy and the
-standard library, and prints one JSON line per phase:
+standard library, and prints one JSON line per phase.
+
+The index slice (``run``):
 
   1. device: the card's name, the device count and nvidia-smi's name and
      power limit;
@@ -30,9 +32,38 @@ standard library, and prints one JSON line per phase:
      through the plain scorer, bitwise (all five result fields and the
      level-stat stacks), on the d_inf tree and on 100k-object l2/l1 trees.
 
-The last two lines are nvidia-smi's name and power limit and
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
-exits non-zero and prints no result line.
+The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
+
+  7. kernel_frontier_wide: the frontier scorer's wide-row variant bitwise
+     against the plain version at b=64, F=128, cap=32, dim 2048/896/1023,
+     d_inf/l2/l1, filter off and on, timed at dim 2048;
+  8. kernel_flash: the flash kernel against ``flash_attention_torch`` at
+     the prefill shape [4, 16, 2048, 128] causal (f32 within 2e-4, bf16
+     within 1e-2) and at GQA g=8 with sq != sk, causal and not; times of
+     the kernel, the plain version and SDPA (the library call, sq == sk);
+  9. kernel_distance_prune: the distance kernel's prune epilogue against
+     its plain version at nq=1024, ne=65,536, d=20;
+  then the slice's main path, launch counters zeroed just before:
+  10. lm_serve: random weights from a seeded generator on the card, one
+      prefill forward at b=4, s=2048 through the flash kernel (36 launches)
+      held against the same forward through the plain attention, and the
+      ``launch/serve`` loop (b=4, prompt 32, 16 greedy steps) mixing a
+      2048-key kNN-LM store; profile_lm: device time by kernel of one
+      prefill and one kNN-LM decode step;
+  11. knnlm_datastore: 65,536 keys tapped from the model's final hidden
+      states (32 x 2048 synthetic tokens), bulk build, retrieval at b=4
+      and b=64 (k=8, F=128) with the kernel descent held bitwise against
+      the plain-scorer descent, evict_before(1024) through Delete,
+      validate(), and the bitwise check again; then the slice's launch
+      counts.
+
+The last three lines are the ``kernels`` line (every TPU kernel's port,
+the frontier scorer's wide rows in two rows of their own: launches on its
+slice's main path and per pass of that path, ms, plain ms, bound ms,
+library ms),
+nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero and prints no
+result line.
 """
 from __future__ import annotations
 
@@ -49,6 +80,19 @@ FULL = dict(n=1_000_000, dims=20, capacity=32, b_bench=1024, b_exact=256,
             b_parity=128, b_recheck=64, n_small=100_000, kernel_b=1024,
             kernel_F=64, kernel_N=50_000, dist_nq=1024, dist_ne=65_536,
             n_insert=300, timing_reps=5)
+# the kNN-LM serving slice: qwen2.5-3b at full width (all 36 layers), f32
+LM_FULL = dict(
+    arch="qwen2.5-3b", smoke=False, prefill_b=4, prefill_s=2048,
+    serve_argv=["--knn"],                 # b=4, prompt 32, 16 steps
+    ds_seqs=32, ds_len=2048, ds_chunk=4, ds_evict=1024, ret_bs=(4, 64),
+    wide_b=64, wide_F=128, wide_cap=32, wide_N=4096, wide_dims=(2048, 896, 1023),
+    flash_cases={                         # b, h, hk, sq, sk, d, causal, dtype
+        "path_f32": (4, 16, 16, 2048, 2048, 128, True, "float32"),
+        "path_bf16": (4, 16, 16, 2048, 2048, 128, True, "bfloat16"),
+        "gqa8_sq<sk": (1, 16, 2, 512, 1024, 128, True, "float32"),
+        "gqa8_noncausal_sq>sk": (2, 16, 2, 700, 300, 128, False, "float32"),
+        "gqa8_bf16": (1, 16, 2, 512, 1024, 128, True, "bfloat16")},
+    prune_nq=1024, prune_ne=65_536, prune_d=20, timing_reps=5)
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
 
@@ -69,30 +113,9 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = nops / H100_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def run(cfg: dict, device: str):
-    import numpy as np
+def timers(on_card: bool):
+    """(sync, time_ms, wall) for the device of the run."""
     import torch
-
-    from repro_torch.core import smtree
-    from repro_torch.core.distributed import brute_force_knn
-    from repro_torch.core.engine import SMTreeEngine
-    from repro_torch.data.datagen import clustered
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.distance import (pairwise_distance,
-                                              pairwise_distance_torch)
-    from repro_torch.kernels.frontier import (frontier_scores,
-                                              frontier_scores_torch)
-
-    on_card = device == "cuda"
-    dev = torch.device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     def sync():
         if on_card:
@@ -123,6 +146,57 @@ def run(cfg: dict, device: str):
         out = fn()
         sync()
         return out, time.perf_counter() - t0
+
+    return sync, time_ms, wall
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = nops / H100_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def frontier_traffic(fids, queries, want, cap: int, prune: bool):
+    """(bytes, ops, live entries) of one frontier scoring on this data: each
+    referenced page's radius/validity (+pdist) rows and each live entry's
+    vector read once, the four outputs written once; 3 ops per dimension of
+    a live entry and 4 per output slot."""
+    import torch
+    b, F = fids.shape
+    dim = queries.shape[1]
+    live = torch.isfinite(want[0]) | torch.isfinite(want[2])
+    n_live = int(live.sum())
+    nodes = fids.clamp(min=0).long()
+    entry = nodes[:, :, None] * cap + torch.arange(cap, device=fids.device)
+    n_vec_rows = torch.unique(entry[live]).numel()
+    n_pages = torch.unique(nodes[fids >= 0]).numel()
+    per_page = cap * (4 + 1 + 1 + (4 if prune else 0))
+    nbytes = (fids.numel() * 4 + queries.numel() * 4
+              + n_pages * per_page + n_vec_rows * dim * 4
+              + (b * F * 4 + b * 4 if prune else 0)
+              + 4 * b * F * cap * 4)
+    return nbytes, n_live * dim * 3 + 4 * b * F * cap, n_live
+
+
+def run(cfg: dict, device: str):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import smtree
+    from repro_torch.core.distributed import brute_force_knn
+    from repro_torch.core.engine import SMTreeEngine
+    from repro_torch.data.datagen import clustered
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.distance import (pairwise_distance,
+                                              pairwise_distance_torch)
+    from repro_torch.kernels.frontier import (frontier_scores,
+                                              frontier_scores_torch)
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sync, time_ms, wall = timers(on_card)
 
     # ---------------------------------------------------------------- 1
     if on_card:
@@ -177,21 +251,7 @@ def run(cfg: dict, device: str):
                       f"frontier {metric} prune={prune} {name} not bitwise")
             ms = time_ms(lambda: frontier_scores(*args, **kw))
             plain_ms = time_ms(lambda: frontier_scores_torch(*args, **kw), iters=5)
-            # the least traffic for this data: each referenced page's
-            # radius/validity (+pdist) rows and each live entry's vector
-            # read once, the four outputs written once
-            live = torch.isfinite(want[0]) | torch.isfinite(want[2])
-            n_live = int(live.sum())
-            nodes = fids.clamp(min=0).long()
-            entry = nodes[:, :, None] * cap + torch.arange(cap, device=dev)
-            n_vec_rows = torch.unique(entry[live]).numel()
-            n_pages = torch.unique(nodes[fids >= 0]).numel()
-            per_page = cap * (4 + 1 + 1 + (4 if prune else 0))
-            nbytes = (fids.numel() * 4 + queries.numel() * 4
-                      + n_pages * per_page + n_vec_rows * dim * 4
-                      + (b * F * 4 + b * 4 if prune else 0)
-                      + 4 * b * F * cap * 4)
-            nops = n_live * dim * 3 + 4 * b * F * cap
+            nbytes, nops, n_live = frontier_traffic(fids, queries, want, cap, prune)
             bms, by = bound(nbytes, nops)
             frontier_rows[(metric, prune)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -284,7 +344,8 @@ def run(cfg: dict, device: str):
     times = [wall(lambda: eng.knn(Qb, k=K, max_frontier=F_exact))[1] * 1e3
              for _ in range(cfg["timing_reps"])]
     (scan_d, scan_i), scan_launches = per_call(
-        lambda: brute_force_knn(Xd, Qb, k=K + 1, metric="d_inf"))
+        lambda: brute_force_knn(Xd, Qb, k=K + 1, metric="d_inf",
+                                device=device))
 
     def check_exact(res, sd, si, ids_of, what):
         ok = ~res.overflow
@@ -418,7 +479,7 @@ def run(cfg: dict, device: str):
     Qr = torch.cat([Qb[:cfg["b_recheck"] // 2],
                     torch.from_numpy(np.asarray(extra[:cfg["b_recheck"] // 2])).to(dev)])
     res = eng.knn(Qr, k=K, max_frontier=F_exact)
-    sd, si = brute_force_knn(Xlive, Qr, k=K + 1, metric="d_inf")
+    sd, si = brute_force_knn(Xlive, Qr, k=K + 1, metric="d_inf", device=device)
     n_ok, n_ids = check_exact(res, sd, si, lambda i: live_ids[i], "knn after mutations")
     emit("insert_delete", inserts=cfg["n_insert"], deletes=len(deleted),
          node_splits=splits, node_merges=merges, seconds=mut_s,
@@ -463,24 +524,408 @@ def run(cfg: dict, device: str):
         dict(name="frontier_scores", route="cuda",
              source="src/repro_torch/kernels/csrc/frontier.cu",
              replaces="src/repro/kernels/frontier.py:109",
-             launches=launches["frontier"], max_abs_err=0.0, ms=d_inf_u["ms"],
+             launches=launches["frontier"],
+             launches_per_pass={"knn_bench": knn_launches["frontier"]},
+             max_abs_err=0.0, ms=d_inf_u["ms"],
              plain_ms=d_inf_u["plain_ms"], bound_ms=d_inf_u["bound_ms"],
              bound_by=d_inf_u["bound_by"], library_ms=None),
         dict(name="frontier_scores[parent_prune]", route="cuda",
              source="src/repro_torch/kernels/csrc/frontier.cu",
              replaces="src/repro/kernels/frontier.py:121",
-             launches=launches["frontier_pruned"], max_abs_err=0.0,
+             launches=launches["frontier_pruned"],
+             launches_per_pass={"knn_bench": knn_launches["frontier_pruned"]},
+             max_abs_err=0.0,
              ms=d_inf_p["ms"], plain_ms=d_inf_p["plain_ms"],
              bound_ms=d_inf_p["bound_ms"], bound_by=d_inf_p["bound_by"],
              library_ms=None),
         dict(name="pairwise_distance", route="cuda",
              source="src/repro_torch/kernels/csrc/distance.cu",
              replaces="src/repro/kernels/distance.py:33",
-             launches=launches["distance"], max_abs_err=dd["max_abs_err"],
+             launches=launches["distance"],
+             launches_per_pass={"brute_force_knn": scan_launches["distance"]},
+             max_abs_err=dd["max_abs_err"],
              ms=dd["ms"], plain_ms=dd["plain_ms"], bound_ms=dd["bound_ms"],
              bound_by=dd["bound_by"], library_ms=dd["library_ms"]),
     ]
     return kernels
+
+
+def run_lm(cfg: dict, device: str):
+    """The kNN-LM serving slice: its kernels against their plain versions
+    (outside the launch counts), then its main path with the counts zeroed
+    just before and read just after.  Returns the slice's rows of the
+    ``kernels`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as Fnn
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels.distance import (pairwise_distance_prune,
+                                              pairwise_distance_prune_torch)
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_torch)
+    from repro_torch.kernels.frontier import (frontier_scores,
+                                              frontier_scores_torch)
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import hidden_states
+    from repro_torch.serve.knnlm import KnnLmConfig, KnnLmDatastore, mix_logits
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    sync, time_ms, wall = timers(on_card)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    reps = cfg["timing_reps"]
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7
+    # the frontier scorer at wide rows (kNN-LM keys are d_model wide)
+    b, F, cap, N = cfg["wide_b"], cfg["wide_F"], cfg["wide_cap"], cfg["wide_N"]
+    wide_rows = {}
+    for dim in cfg["wide_dims"]:
+        vecs = torch.randn((N, cap, dim), generator=gen, device=dev)
+        valid = torch.rand((N, cap), generator=gen, device=dev) < 0.8
+        leaf = (torch.rand((N,), generator=gen, device=dev) < 0.5)[:, None]
+        iv, lv = valid & ~leaf, valid & leaf
+        fids = torch.randint(0, N, (b, F), generator=gen, device=dev, dtype=torch.int32)
+        fids[torch.rand((b, F), generator=gen, device=dev) < 0.1] = -1
+        queries = torch.randn((b, dim), generator=gen, device=dev)
+        for metric, scale in (("d_inf", 5.0), ("l2", (2.0 * dim) ** 0.5),
+                              ("l1", 1.128 * dim)):
+            # radii and parent distances around the metric's distance scale,
+            # so the filter keeps some entries and drops others
+            u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+            radius = u(N, cap) * 0.05 * scale
+            filt = dict(pdist=(1 + 0.15 * torch.randn((N, cap), generator=gen,
+                                                      device=dev)).abs() * scale,
+                        qpd=(1 + 0.15 * torch.randn((b, F), generator=gen,
+                                                    device=dev)).abs() * scale,
+                        rq=u(b) * 0.1 * scale)
+            args = (fids, queries, vecs, radius, iv, lv)
+            for prune in (False, True):
+                kw = dict(metric=metric, **(filt if prune else {}))
+                got = frontier_scores(*args, **kw)
+                want = frontier_scores_torch(*args, **kw)
+                sync()
+                for name, g, w in zip(("dmax", "score", "leaf_d", "dq"), got, want):
+                    check(torch.equal(g, w), f"wide frontier dim={dim} {metric} "
+                                             f"prune={prune} {name} not bitwise")
+                row = dict(bitwise=True)
+                if dim == cfg["wide_dims"][0]:
+                    nbytes, nops, n_live = frontier_traffic(fids, queries, want, cap, prune)
+                    bms, by = bound(nbytes, nops)
+                    row.update(ms=time_ms(lambda: frontier_scores(*args, **kw)),
+                               plain_ms=time_ms(lambda: frontier_scores_torch(*args, **kw),
+                                                iters=3, warmup=1),
+                               bound_ms=bms, bound_by=by, bytes=nbytes, ops=nops,
+                               live_evals=n_live)
+                wide_rows[f"{dim}/{metric}/{'prune' if prune else 'plain'}"] = row
+                del got, want
+        del vecs, queries, fids
+        free()
+    emit("kernel_frontier_wide", shapes=dict(b=b, F=F, cap=cap, N=N,
+                                             dims=list(cfg["wide_dims"])),
+         bitwise=True, results=wide_rows)
+
+    # ---------------------------------------------------------------- 8
+    flash_rows = {}
+    for name, (fb, h, hk, sq, sk, d, causal, dt) in cfg["flash_cases"].items():
+        dtype = getattr(torch, dt)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
+        q, k, v = rnd(fb, h, sq, d), rnd(fb, hk, sk, d), rnd(fb, hk, sk, d)
+        got = flash_attention_fwd(q, k, v, causal=causal)
+        want = flash_attention_torch(q, k, v, causal=causal)
+        sync()
+        tol = 2e-4 if dt == "float32" else 1e-2
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        check(got.dtype == dtype and got.shape == q.shape, f"flash {name}: dtype/shape")
+        check(bool((diff <= tol + tol * want.float().abs()).all()),
+              f"flash {name}: beyond {tol} (max abs err {err})")
+        row = dict(shape=[fb, h, hk, sq, sk, d], causal=causal, dtype=dt,
+                   max_abs_err=err, tol=tol)
+        if name.startswith("path"):
+            # visible (query, key) pairs, bottom-right causal
+            qpos = np.arange(sq) + (sk - sq)
+            pairs = int(np.clip(qpos + 1, 0, sk).sum()) if causal else sq * sk
+            nops = 4.0 * fb * h * d * pairs
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            bms, by = bound(nbytes, nops)
+            row.update(ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal),
+                                  iters=10),
+                       plain_ms=time_ms(lambda: flash_attention_torch(q, k, v, causal=causal),
+                                        iters=3, warmup=1),
+                       library_ms=(time_ms(lambda: Fnn.scaled_dot_product_attention(
+                           q, k, v, is_causal=causal), iters=10) if on_card else None),
+                       bound_ms=bms, bound_by=by, flops=nops, bytes=nbytes)
+        flash_rows[name] = row
+        del q, k, v, got, want, diff
+        free()
+    emit("kernel_flash", results=flash_rows,
+         library="torch.nn.functional.scaled_dot_product_attention (sq == sk only)")
+
+    # ---------------------------------------------------------------- 9
+    nq, ne, d = cfg["prune_nq"], cfg["prune_ne"], cfg["prune_d"]
+    q = torch.rand((nq, d), generator=gen, device=dev)
+    e = torch.rand((ne, d), generator=gen, device=dev)
+    prune_rows = {}
+    for metric, (lo, hi) in (("d_inf", (0.0, 0.6)),
+                             ("sqeuclidean", (0.1 * d ** 0.5, 0.35 * d ** 0.5)),
+                             ("ip", (-0.2 * d, -0.05 * d))):
+        r_q = lo + (hi - lo) * torch.rand((nq,), generator=gen, device=dev)
+        r_e = lo + (hi - lo) * torch.rand((ne,), generator=gen, device=dev)
+        gd, gm = pairwise_distance_prune(q, e, r_q, r_e, metric)
+        wd, wm = pairwise_distance_prune_torch(q, e, r_q, r_e, metric)
+        sync()
+        err = float((gd - wd).abs().max())
+        check(bool(((gd - wd).abs() <= 1e-5 + 1e-5 * wd.abs()).all()),
+              f"prune {metric}: distances beyond 1e-5 (max abs err {err})")
+        true_d = wd.clamp_min(0).double().sqrt() if metric == "sqeuclidean" else wd.double()
+        decided = (true_d - (r_q[:, None] + r_e[None, :]).double()).abs() > 1e-6
+        check(torch.equal(gm[decided], wm[decided]), f"prune {metric}: masks differ")
+        bms, by = bound((nq * d + ne * d + nq + ne) * 4 + nq * ne * 5, nq * ne * d * 3)
+        prune_rows[metric] = dict(
+            ms=time_ms(lambda: pairwise_distance_prune(q, e, r_q, r_e, metric)),
+            plain_ms=time_ms(lambda: pairwise_distance_prune_torch(q, e, r_q, r_e, metric),
+                             iters=5),
+            library_ms=None, bound_ms=bms, bound_by=by, max_abs_err=err,
+            undecided=int((~decided).sum()), mask_differs_undecided=int(
+                (gm[~decided] != wm[~decided]).sum()),
+            survive_share=float(gm.float().mean()))
+        del gd, gm, wd, wm, true_d, decided
+    emit("kernel_distance_prune", shapes=dict(nq=nq, ne=ne, d=d), results=prune_rows)
+    del q, e
+    free()
+
+    # ---------------------------------------------------------------- 10-11
+    # the main path: counts zeroed here and read after the datastore phase
+    frontier_scores.launches = 0
+    frontier_scores.pruned_launches = 0
+    frontier_scores.wide_launches = 0
+    flash_attention_fwd.launches = 0
+
+    def counts():
+        return dict(flash=flash_attention_fwd.launches,
+                    frontier=frontier_scores.launches,
+                    frontier_pruned=frontier_scores.pruned_launches,
+                    frontier_wide=frontier_scores.wide_launches)
+
+    def delta(c0):
+        return {k: v - c0[k] for k, v in counts().items()}
+
+    mcfg = smoke_config(cfg["arch"]) if cfg["smoke"] else get_config(cfg["arch"])
+    params, init_s = wall(lambda: M.init_params(mcfg, 0, device=device))
+    n_params = M.param_count(params)
+    check(n_params == mcfg.param_count + mcfg.d_model,
+          f"{n_params} parameters vs cfg.param_count {mcfg.param_count} "
+          "(+ the final norm's scale, which it leaves out)")
+    B, S, V = cfg["prefill_b"], cfg["prefill_s"], mcfg.padded_vocab
+    tokens = torch.from_numpy(synth_batch(DataConfig(
+        vocab_size=mcfg.vocab_size, seq_len=S, global_batch=B), 0,
+        with_labels=False)["tokens"]).to(dev)
+    prefill = make_prefill_step(mcfg)
+    c0 = counts()
+    logits, prefill_s = wall(lambda: prefill(params, {"tokens": tokens}))
+    per_forward = delta(c0)["flash"]
+    if on_card:
+        check(per_forward == mcfg.n_layers,
+              f"{per_forward} flash launches in one forward, not {mcfg.n_layers}")
+    again = [wall(lambda: prefill(params, {"tokens": tokens}))[1] for _ in range(2)]
+    plain_logits, plain_s = wall(lambda: make_prefill_step(
+        mcfg, _attention=flash_attention_torch)(params, {"tokens": tokens}))
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (B, S, V),
+          "prefill logits: shape or non-finite values")
+    err = float((logits - plain_logits).abs().max())
+    top = float(plain_logits.abs().max())
+    check(err <= 1e-3 * top, f"prefill logits: kernel vs plain {err} > 1e-3 x {top}")
+    argmax_eq = torch.equal(logits[:, -1].argmax(-1), plain_logits[:, -1].argmax(-1))
+    check(argmax_eq, "prefill: last-position argmax differs from the plain path")
+    del logits, plain_logits
+    free()
+
+    args = serve.parser().parse_args(cfg["serve_argv"] + ["--device", device])
+    store, store_s = wall(lambda: serve._build_store(mcfg, args.lam, device))
+    c0 = counts()
+    toks, timing = serve.serve_loop(args, mcfg, params, store)
+    serve_counts = delta(c0)
+    check(toks.shape == (args.batch, args.steps + 1)
+          and bool(((toks >= 0) & (toks < V)).all()), "serve: bad tokens")
+    emit("lm_serve", arch=mcfg.name, n_layers=mcfg.n_layers, d_model=mcfg.d_model,
+         heads=[mcfg.n_heads, mcfg.n_kv_heads], d_ff=mcfg.d_ff, vocab=mcfg.vocab_size,
+         dtype=mcfg.param_dtype, params=n_params, cfg_param_count=mcfg.param_count,
+         init_seconds=init_s,
+         prefill=dict(b=B, s=S, ms=[prefill_s * 1e3] + [t * 1e3 for t in again],
+                      plain_attention_ms=plain_s * 1e3,
+                      flash_launches_per_forward=per_forward,
+                      max_abs_logit_err=err, max_abs_logit=top,
+                      last_argmax_equal=argmax_eq),
+         serve=dict(batch=args.batch, prompt_len=args.prompt_len, steps=args.steps,
+                    knn=True, lam=args.lam, store_keys=len(store.values),
+                    store_build_seconds=store_s,
+                    prompt_feed_ms_per_token=timing["prefill_s"] * 1e3 / args.prompt_len,
+                    ms_per_decode_step=timing["ms_per_step"],
+                    frontier_launches_per_step=serve_counts["frontier"] / args.steps,
+                    launches=serve_counts, sample=toks[0][:12].tolist()))
+
+    # where the time goes: one prefill forward and one kNN-LM decode step
+    if on_card:
+        from torch.autograd import DeviceType
+
+        def profile(fn, wall_ms):
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kern = [ev for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA]
+            kern.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+            busy = sum(ev.self_device_time_total for ev in kern) / 1e3
+            return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                        device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+                        kernels=[dict(name=ev.key[:72], ms=ev.self_device_time_total / 1e3,
+                                      calls=ev.count) for ev in kern[:8]])
+
+        cache = M.init_cache(mcfg, args.batch, 8, device=device)
+        tok = torch.from_numpy(toks[:, 0]).to(dev)
+
+        def decode_knn():
+            logits, _ = M.decode_step(params, mcfg, tok, cache, 0)
+            h = params.embed[tok.long()].float()
+            return mix_logits(logits, store.knn_logits(h, V), args.lam).argmax(-1)
+
+        _, dec_s = wall(decode_knn)
+        emit("profile_lm", prefill=profile(lambda: prefill(params, {"tokens": tokens}),
+                                           float(np.median(again)) * 1e3),
+             decode_step_knn=profile(decode_knn, dec_s * 1e3))
+        del cache
+    del store, tokens
+    free()
+
+    # the datastore: keys are hidden states of 32 x 2048 synthetic tokens
+    L, n_seq, chunk = cfg["ds_len"], cfg["ds_seqs"], cfg["ds_chunk"]
+    D = mcfg.d_model
+    batch = synth_batch(DataConfig(vocab_size=mcfg.vocab_size, seq_len=L,
+                                   global_batch=n_seq), 100)
+    keys = np.empty((n_seq * L, D), np.float32)
+    t0 = time.perf_counter()
+    for i in range(0, n_seq, chunk):
+        h = hidden_states(params, mcfg, {"tokens": torch.from_numpy(
+            batch["tokens"][i:i + chunk]).to(dev)})
+        keys[i * L:(i + chunk) * L] = h.reshape(-1, D).cpu().numpy()
+    tap_s = time.perf_counter() - t0
+    vals = batch["labels"].reshape(-1)
+    held = synth_batch(DataConfig(seed=1, vocab_size=mcfg.vocab_size, seq_len=L,
+                                  global_batch=chunk), 0)
+    hq = hidden_states(params, mcfg, {"tokens": torch.from_numpy(held["tokens"]).to(dev)})
+    pick = np.random.default_rng(3).choice(chunk * L, max(cfg["ret_bs"]), replace=False)
+    Q = hq.reshape(-1, D)[torch.from_numpy(pick).to(dev)].contiguous()
+    del hq
+    store = KnnLmDatastore(KnnLmConfig(k=8, lam=0.3, metric="l2", capacity=32,
+                                       max_frontier=128), D, device=device)
+    _, build_s = wall(lambda: store.build(keys, vals))
+    tree = store.engine.tree
+    tree_info = dict(keys=len(vals), dim=D, height=int(tree.height),
+                     n_nodes=int(tree.n_nodes), max_nodes=tree.max_nodes,
+                     page_bytes=tree.vecs.numel() * 4)
+
+    def retrieval(tag):
+        out = {}
+        for rb in cfg["ret_bs"]:
+            q = Q[:rb]
+            c0 = counts()
+            res = store.retrieve(q)
+            launches = delta(c0)
+            ref = store.retrieve(q, _scorer=frontier_scores_torch)
+            for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
+                check(torch.equal(getattr(res, f), getattr(ref, f)),
+                      f"datastore {tag} b={rb}: kernel and plain descents differ in {f}")
+            ms = [wall(lambda: store.knn_logits(q, V))[1] * 1e3 for _ in range(reps)]
+            lp = store.knn_logits(q, V)
+            check(lp.shape == (rb, V) and bool(torch.isfinite(lp).all()),
+                  f"datastore {tag}: kNN log-probs")
+            out[f"b{rb}"] = dict(
+                k=8, max_frontier=128, knn_logits_ms=ms, bitwise_vs_plain=True,
+                overflow_share=float(res.overflow.float().mean()),
+                dist_evals_per_query=float(res.dist_evals.float().mean()),
+                page_hits_per_query=float(res.page_hits.float().mean()),
+                frontier_launches=launches["frontier"],
+                frontier_pruned_launches=launches["frontier_pruned"],
+                min_id=int(res.ids.min()))
+        return out
+
+    before = retrieval("built")
+    n_ev = cfg["ds_evict"]
+    nodes_before = int(store.engine.tree.alive.sum())
+    evicted, evict_s = wall(lambda: store.evict_before(n_ev))
+    nodes_after = int(store.engine.tree.alive.sum())
+    check(evicted == n_ev, f"evicted {evicted} of {n_ev}")
+    _, val_s = wall(store.engine.validate)
+    check(store.engine.n_objects == len(vals) - n_ev, "datastore count after eviction")
+    after = retrieval("after eviction")
+    check(all(r["min_id"] >= n_ev or r["min_id"] == -1 for r in after.values()),
+          "an evicted key came back")
+    emit("knnlm_datastore", hidden_state_tap_seconds=tap_s, build_seconds=build_s,
+         tree=tree_info, retrieval=before, evicted=evicted, evict_seconds=evict_s,
+         alive_nodes_before_after_evict=[nodes_before, nodes_after],
+         validate=True, validate_seconds=val_s, retrieval_after_evict=after)
+    path = counts()
+    emit("lm_path_launches", **path)
+    if on_card:
+        check(path["flash"] > 0, "the flash kernel never launched on the main path")
+        check(path["frontier_wide"] > 0 and path["frontier_wide"] == path["frontier"],
+              "the wide frontier variant did not carry the datastore's retrieval")
+        check(path["frontier_pruned"] > 0 and path["frontier"] > path["frontier_pruned"],
+              "the wide frontier ran without or only with the parent filter")
+    del store, params, keys
+    free()
+
+    # every frontier launch of this path is wide (checked above on the card):
+    # the unfiltered ones score the root level, the filtered ones the rest
+    wide_u = wide_rows[f"{cfg['wide_dims'][0]}/l2/plain"]
+    wide_p = wide_rows[f"{cfg['wide_dims'][0]}/l2/prune"]
+    ret0 = before[f"b{cfg['ret_bs'][0]}"]
+    step_u = (serve_counts["frontier"] - serve_counts["frontier_pruned"]) / args.steps
+    step_p = serve_counts["frontier_pruned"] / args.steps
+    fl = flash_rows["path_f32"]
+    pr = prune_rows["d_inf"]
+    return [
+        dict(name="frontier_scores[wide]", route="cuda",
+             source="src/repro_torch/kernels/csrc/frontier.cu",
+             replaces="src/repro/kernels/frontier.py:109",
+             launches=path["frontier"] - path["frontier_pruned"],
+             launches_per_pass={"decode_step_knn": step_u, "datastore_retrieval":
+                                ret0["frontier_launches"] - ret0["frontier_pruned_launches"]},
+             max_abs_err=0.0, ms=wide_u["ms"], plain_ms=wide_u["plain_ms"],
+             bound_ms=wide_u["bound_ms"], bound_by=wide_u["bound_by"], library_ms=None),
+        dict(name="frontier_scores[wide,parent_prune]", route="cuda",
+             source="src/repro_torch/kernels/csrc/frontier.cu",
+             replaces="src/repro/kernels/frontier.py:121",
+             launches=path["frontier_pruned"],
+             launches_per_pass={"decode_step_knn": step_p,
+                                "datastore_retrieval": ret0["frontier_pruned_launches"]},
+             max_abs_err=0.0, ms=wide_p["ms"], plain_ms=wide_p["plain_ms"],
+             bound_ms=wide_p["bound_ms"], bound_by=wide_p["bound_by"], library_ms=None),
+        dict(name="pairwise_distance_prune", route="cuda",
+             source="src/repro_torch/kernels/csrc/distance.cu",
+             replaces="src/repro/kernels/distance.py:62",
+             launches=0, launches_per_pass={}, max_abs_err=pr["max_abs_err"], ms=pr["ms"],
+             plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
+             bound_by=pr["bound_by"], library_ms=None),
+        dict(name="flash_attention_fwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:38",
+             launches=path["flash"],
+             launches_per_pass={"prefill_forward": per_forward},
+             max_abs_err=fl["max_abs_err"], ms=fl["ms"],
+             plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"],
+             bound_by=fl["bound_by"], library_ms=fl["library_ms"]),
+    ]
 
 
 def main() -> int:
@@ -489,7 +934,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    kernels = run(FULL, "cuda")
+    index_rows = run(FULL, "cuda")
+    torch.cuda.empty_cache()
+    wide, wide_pruned, prune, flash = run_lm(LM_FULL, "cuda")
+    kernels = index_rows[:2] + [wide, wide_pruned, index_rows[2], prune, flash]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -332,7 +332,8 @@ def _as_queries(tree: TreeArrays, queries) -> torch.Tensor:
 
 
 def knn(tree: TreeArrays, queries, *, k: int = 1, max_frontier: int = 64,
-        level_stats: bool = False, parent_prune: bool | None = None):
+        level_stats: bool = False, parent_prune: bool | None = None,
+        _scorer=None):
     """Batched k-NN on the tree's device: level-synchronous cohort descent.
 
     queries: [b, dim].  Exact when ``overflow`` is False; otherwise
@@ -341,11 +342,13 @@ def knn(tree: TreeArrays, queries, *, k: int = 1, max_frontier: int = 64,
     int32 stacks ``[n_internal_levels, b]`` and ``[height, b]`` of entries
     pruned by the d_min bound and by the parent-distance pre-filter.
     ``parent_prune`` toggles that pre-filter (results are bitwise identical
-    on or off; only ``dist_evals`` changes)."""
+    on or off; only ``dist_evals`` changes).  ``_scorer`` is private: it
+    replaces the frontier scorer (see ``_knn_cohort``)."""
     queries = _as_queries(tree, queries)
     return _query(tree, queries, k, max_frontier, _INF,
                   level_stats=level_stats,
-                  parent_prune=_resolve_parent_prune(parent_prune))
+                  parent_prune=_resolve_parent_prune(parent_prune),
+                  scorer=_scorer)
 
 
 def range_search(tree: TreeArrays, queries, radius, *, max_results: int = 128,
@@ -372,13 +375,14 @@ def _range_filter(res: QueryResult, radius, max_results: int) -> QueryResult:
 
 
 def _query(tree: TreeArrays, queries, k: int, F: int, r_cap, *,
-           level_stats: bool = False, parent_prune: bool = True):
+           level_stats: bool = False, parent_prune: bool = True,
+           scorer=None):
     """The cohort engine unrolls the descent over the tree's height, which
     eager PyTorch always knows (leaves all sit at one depth, so each level
     is either internal or the leaf level)."""
     return _knn_cohort(tree, queries, r_cap, k=k, F=F,
                        height=int(tree.height), level_stats=level_stats,
-                       prune=parent_prune)
+                       prune=parent_prune, scorer=scorer)
 
 
 def _smallest(x: torch.Tensor, n: int):

@@ -3,10 +3,14 @@
 
 Each ``csrc/<name>.cu`` exports plain C launch functions (no PyTorch
 headers, so ``nvcc`` takes seconds, not minutes) and is compiled on its own
-into ``build/repro_torch/<name>-<hash>.so`` under the repository root.  The
-hash covers the source and the flags, so an edited kernel is rebuilt and an
-unchanged one is reused.  ``-Xptxas -v`` output (registers, shared memory,
-spills) is kept beside each library in ``<name>-<hash>.log``.
+into ``build/repro_torch/<name>-<hash>.so`` under the repository root, with
+the common flags plus its own (``EXTRA_FLAGS``: the kernels held bitwise to
+their plain versions are built with ``--fmad=false``, so that no multiply
+and add are contracted into one FMA; flash attention, held to a tolerance,
+is not).  The hash covers the source and the flags, so an edited kernel is
+rebuilt and an unchanged one is reused.  ``-Xptxas -v`` output (registers,
+shared memory, spills) is kept beside each library in
+``<name>-<hash>.log``.
 
 Nothing is built at import: the first wrapper call on a CUDA tensor builds
 what it needs, and ``build_all`` builds every source at once, one ``nvcc``
@@ -27,8 +31,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+EXTRA_FLAGS = {"frontier": ("--fmad=false",), "distance": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -51,9 +55,13 @@ def _nvcc() -> str:
     return found
 
 
+def flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -75,7 +83,7 @@ def _build_locked(names: list[str]) -> dict[str, float]:
             secs[name] = 0.0
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, so, time.perf_counter())

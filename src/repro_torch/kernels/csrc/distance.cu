@@ -1,9 +1,15 @@
 // Tiled pairwise distances [nq, d] x [ne, d] -> [nq, ne] f32, for Hopper
 // (sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/distance.py::_dist_kernel
-// (wrapper pairwise_distance_pallas), the flat scan behind
-// core/distributed.py:brute_force_knn.
+// Replaces the TPU kernels src/repro/kernels/distance.py::_dist_kernel
+// (wrapper pairwise_distance_pallas, PRUNE = false), the flat scan behind
+// core/distributed.py:brute_force_knn, and ::_dist_prune_kernel (wrapper
+// pairwise_distance_prune_pallas, PRUNE = true), which adds the
+// triangle-inequality survival mask d <= r_q + r_e on the finished tile
+// (sqeuclidean: the mask is taken on sqrt(max(d, 0)) and the squared d is
+// returned; equality survives).  The TPU wrapper pads queries with r = -1
+// and entries with r = -inf so that padding never survives; here the tile
+// edges are masked instead and nothing outside [nq, ne] is written.
 //   d_inf        max_t |q_t - e_t|       (bitwise equal to the plain version:
 //                                         a max is exact in any order)
 //   sqeuclidean  sum_t (q_t - e_t)^2     (>= 0 by construction)
@@ -34,10 +40,12 @@ constexpr int kThreads = 256;
 
 enum Metric { kDinf = 0, kSqEuclidean = 1, kIp = 2 };
 
-template <int METRIC>
+template <int METRIC, bool PRUNE>
 __global__ void __launch_bounds__(kThreads)
 dist_kernel(const float* __restrict__ q, const float* __restrict__ e,
-            float* __restrict__ out, int nq, int ne, int d) {
+            const float* __restrict__ rq, const float* __restrict__ re,
+            float* __restrict__ out, unsigned char* __restrict__ mask,
+            int nq, int ne, int d) {
   __shared__ float qs[kBD][kBQ + 1];
   __shared__ float es[kBD][kBE + 1];
   const int tx = threadIdx.x % 16;
@@ -92,30 +100,51 @@ dist_kernel(const float* __restrict__ q, const float* __restrict__ e,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int ge = e0 + tx + 16 * c;
-      if (ge < ne)
-        out[(long long)gq * ne + ge] = (METRIC == kIp) ? -acc[a][c] : acc[a][c];
+      if (ge >= ne) continue;
+      const float dv = (METRIC == kIp) ? -acc[a][c] : acc[a][c];
+      const long long o = (long long)gq * ne + ge;
+      out[o] = dv;
+      if (PRUNE) {
+        const float t = (METRIC == kSqEuclidean) ? __fsqrt_rn(fmaxf(dv, 0.f)) : dv;
+        mask[o] = t <= __fadd_rn(rq[gq], re[ge]);
+      }
     }
   }
 }
 
+template <bool PRUNE>
+void launch(dim3 grid, cudaStream_t st, int metric, const float* q,
+            const float* e, const float* rq, const float* re, float* out,
+            unsigned char* mask, int nq, int ne, int d) {
+  if (metric == kDinf)
+    dist_kernel<kDinf, PRUNE><<<grid, kThreads, 0, st>>>(q, e, rq, re, out, mask, nq, ne, d);
+  else if (metric == kSqEuclidean)
+    dist_kernel<kSqEuclidean, PRUNE><<<grid, kThreads, 0, st>>>(q, e, rq, re, out, mask, nq, ne, d);
+  else
+    dist_kernel<kIp, PRUNE><<<grid, kThreads, 0, st>>>(q, e, rq, re, out, mask, nq, ne, d);
+}
+
 }  // namespace
 
-// Launch on ``stream``; returns cudaGetLastError() (0 on success).
+// Launch on ``stream``; returns cudaGetLastError() (0 on success).  With
+// ``mask`` non-null the survival mask is written too (rq [nq], re [ne]
+// radii; mask [nq, ne] bytes 0/1).
 extern "C" int pairwise_distance_launch(const float* q, const float* e,
-                                        float* out, int nq, int ne, int d,
-                                        int metric, void* stream) {
+                                        const float* rq, const float* re,
+                                        float* out, unsigned char* mask,
+                                        int nq, int ne, int d, int metric,
+                                        void* stream) {
   if (nq < 0 || ne < 0 || d < 1 || metric < 0 || metric > 2)
+    return (int)cudaErrorInvalidValue;
+  if (mask != nullptr && (rq == nullptr || re == nullptr))
     return (int)cudaErrorInvalidValue;
   if (nq == 0 || ne == 0) return 0;
   if ((nq + kBQ - 1) / kBQ > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((ne + kBE - 1) / kBE, (nq + kBQ - 1) / kBQ);
-  const dim3 block(kThreads);
   cudaStream_t st = (cudaStream_t)stream;
-  if (metric == kDinf)
-    dist_kernel<kDinf><<<grid, block, 0, st>>>(q, e, out, nq, ne, d);
-  else if (metric == kSqEuclidean)
-    dist_kernel<kSqEuclidean><<<grid, block, 0, st>>>(q, e, out, nq, ne, d);
+  if (mask != nullptr)
+    launch<true>(grid, st, metric, q, e, rq, re, out, mask, nq, ne, d);
   else
-    dist_kernel<kIp><<<grid, block, 0, st>>>(q, e, out, nq, ne, d);
+    launch<false>(grid, st, metric, q, e, rq, re, out, mask, nq, ne, d);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,14 @@ as the TPU kernel upcasts f32/bf16 blocks.
 ``pairwise_distance`` dispatches on the device like ``frontier_scores``: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
 ``pairwise_distance.launches`` counts kernel launches.
+
+``pairwise_distance_prune`` (port of ``pairwise_distance_prune_pallas``,
+kernel body ``_dist_prune_kernel``) returns the same distances and the
+triangle-inequality survival mask ``d <= r_q + r_e`` of the SM-tree's prune
+test: for ``sqeuclidean`` the mask is taken on ``sqrt(max(d, 0))`` while
+the distances stay squared; equality survives.  Its plain version is
+``pairwise_distance_prune_torch``; on the card the same CUDA kernel runs
+with its ``PRUNE`` epilogue (``pairwise_distance_prune.launches``).
 """
 from __future__ import annotations
 
@@ -34,6 +42,24 @@ def _check_metric(metric: str):
     if metric not in _METRIC_CODES:
         raise ValueError(f"pairwise distance metric must be one of {METRICS}; "
                          f"got {metric!r}")
+
+
+def _true_distance(dist, metric: str):
+    """The distance the prune mask is taken on.  The root is taken in f64
+    and rounded once: torch's vectorised f32 ``sqrt`` on the CPU is not
+    correctly rounded (see core/metric.py), the kernel's ``__fsqrt_rn``
+    is."""
+    if metric == "sqeuclidean":
+        return dist.clamp_min(0.0).double().sqrt().float()
+    return dist
+
+
+def pairwise_distance_prune_torch(q, e, r_q, r_e, metric: str = "d_inf"):
+    """Plain version of the fused distances + prune mask: (dist, mask)."""
+    dist = pairwise_distance_torch(q, e, metric)
+    rq = torch.as_tensor(r_q, dtype=torch.float32, device=dist.device)
+    re = torch.as_tensor(r_e, dtype=torch.float32, device=dist.device)
+    return dist, _true_distance(dist, metric) <= rq[:, None] + re[None, :]
 
 
 def pairwise_distance_torch(q, e, metric: str = "d_inf"):
@@ -61,12 +87,12 @@ def _lib():
     from repro_torch.kernels import _build
     lib = _build.load("distance")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pairwise_distance_launch.argtypes = [p, p, p, i, i, i, i, p]
+    lib.pairwise_distance_launch.argtypes = [p] * 6 + [i] * 4 + [p]
     lib.pairwise_distance_launch.restype = i
     return lib
 
 
-def _pairwise_distance_cuda(q, e, metric: str):
+def _pairwise_distance_cuda(q, e, metric: str, r_q=None, r_e=None):
     dev = q.device
     if e.device != dev:
         raise ValueError(f"e is on {e.device}, q on {dev}")
@@ -83,17 +109,29 @@ def _pairwise_distance_cuda(q, e, metric: str):
         raise ValueError("distance kernel needs d >= 1")
     if max(nq, ne) * d >= 2 ** 31 or nq * ne >= 2 ** 62:
         raise ValueError(f"inputs too large for one launch: nq={nq}, ne={ne}, d={d}")
+    prune = r_q is not None
+    if prune:
+        for name, r, n in (("r_q", r_q, nq), ("r_e", r_e, ne)):
+            if r.device != dev or r.dtype != torch.float32 or tuple(r.shape) != (n,):
+                raise ValueError(f"{name} must be float32 [{n}] on {dev}; got "
+                                 f"{r.dtype} {tuple(r.shape)} on {r.device}")
     out = torch.empty((nq, ne), dtype=torch.float32, device=dev)
+    mask = torch.empty((nq, ne), dtype=torch.bool, device=dev) if prune else None
     if nq == 0 or ne == 0:
-        return out
+        return (out, mask) if prune else out
     lib = _lib()
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pairwise_distance_launch(q.data_ptr(), e.data_ptr(),
-                                          out.data_ptr(), nq, ne, d,
-                                          _METRIC_CODES[metric], stream)
+        rc = lib.pairwise_distance_launch(q.data_ptr(), e.data_ptr(), ptr(r_q),
+                                          ptr(r_e), out.data_ptr(), ptr(mask),
+                                          nq, ne, d, _METRIC_CODES[metric],
+                                          stream)
     if rc != 0:
         raise RuntimeError(f"distance kernel launch failed: cudaError {rc}")
+    if prune:
+        pairwise_distance_prune.launches += 1
+        return out, mask
     pairwise_distance.launches += 1
     return out
 
@@ -111,3 +149,19 @@ def pairwise_distance(q, e, metric: str = "d_inf"):
 
 
 pairwise_distance.launches = 0
+
+
+def pairwise_distance_prune(q, e, r_q, r_e, metric: str = "d_inf"):
+    """(dist [nq, ne] f32, mask [nq, ne] bool): the CUDA kernel with its
+    prune epilogue for CUDA tensors, the plain version for CPU tensors."""
+    _check_metric(metric)
+    if q.device.type == "cuda":
+        f = lambda t: torch.as_tensor(t, dtype=torch.float32,
+                                      device=q.device).contiguous()
+        return _pairwise_distance_cuda(f(q), f(e), metric, f(r_q), f(r_e))
+    if q.device.type != "cpu":
+        raise ValueError(f"pairwise_distance_prune runs on cuda or cpu, not {q.device}")
+    return pairwise_distance_prune_torch(q, e, r_q, r_e, metric)
+
+
+pairwise_distance_prune.launches = 0

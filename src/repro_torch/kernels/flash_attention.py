@@ -1,0 +1,110 @@
+"""GQA flash-attention forward.
+
+Port of ``repro/kernels/flash_attention.py:flash_attention_fwd`` (kernel
+body ``_flash_fwd_kernel``).  q: [b, h, sq, d]; k, v: [b, hk, sk, d] with
+h % hk == 0; f32 or bf16 (computed in f32, returned in q's dtype).  Causal
+masking is bottom-right aligned (query i sees keys ``j <= i + (sk - sq)``),
+masked logits are -1e30 and a row with no visible key writes zeros.
+
+  * ``flash_attention_torch`` — the plain PyTorch version: the online-
+    softmax math of ``attention_plain.chunked_attention``;
+  * the CUDA kernel ``csrc/flash_attention.cu``, within 2e-4 (f32) and
+    3e-2 (bf16) of the plain version.
+
+``flash_attention_fwd`` dispatches on the tensors' device: CPU tensors
+take the plain version, CUDA tensors launch the kernel or raise.  On the
+card it refuses what the kernel does not take: head widths above 256,
+mixed dtypes, inputs that require grad (the backward, a recompute through
+the plain version as the reference's custom VJP does, comes with the
+training port) and causal ``sq > sk`` — rows that see no key there get a
+value that depends on the TPU kernel's block size, and no model path asks
+for it (the LM's attention always has ``sq == sk``).
+``flash_attention_fwd.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.attention_plain import chunked_attention
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_torch(q, k, v, *, causal: bool = True,
+                          scale: float | None = None):
+    """Plain version: the chunked online softmax of the reference's XLA
+    path (``chunked_attention``)."""
+    return chunked_attention(q, k, v, causal=causal, scale=scale)
+
+
+@functools.cache
+def _lib():
+    """The built library, with its C signatures declared (once)."""
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd_launch.argtypes = ([p] * 4 + [i] * 6
+                                               + [ctypes.c_float, i, i, p])
+    lib.flash_attention_fwd_launch.restype = i
+    lib.flash_attention_max_head_dim.restype = i
+    return lib
+
+
+def _flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError(f"q, k, v must share a device; got {dev}, {k.device}, {v.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q [b, h, sq, d] and k, v [b, hk, sk, d]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    _, hk, sk, dk = k.shape
+    if k.shape[0] != b or dk != d or hk < 1 or h % hk != 0:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes f32 or bf16, one dtype for q, k, v; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash kernel has no backward yet; inputs must "
+                           "not require grad")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash kernel inputs must be contiguous")
+    lib = _lib()
+    if d > lib.flash_attention_max_head_dim() or sk < 1:
+        raise ValueError(f"flash kernel takes 1 <= d <= "
+                         f"{lib.flash_attention_max_head_dim()} and sk >= 1; "
+                         f"got d={d}, sk={sk}")
+    if causal and sq > sk:
+        raise ValueError(f"causal flash attention needs sq <= sk; got sq={sq}, sk={sk}")
+    out = torch.empty_like(q)
+    if b == 0 or sq == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, hk, sq, sk, d, float(scale), int(causal),
+            _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
+    flash_attention_fwd.launches += 1
+    return out
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        scale: float | None = None):
+    """Attention forward: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Returns [b, h, sq, d] in q's dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cuda":
+        return _flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=causal, scale=scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {q.device}")
+    return flash_attention_torch(q, k, v, causal=causal, scale=scale)
+
+
+flash_attention_fwd.launches = 0

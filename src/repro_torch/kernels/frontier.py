@@ -20,12 +20,18 @@ Two implementations of one function:
     computation as the reference's ``frontier_scores_xla`` (a
     ``[b, F, cap, dim]`` gather, then the shared metric);
   * the CUDA kernel ``csrc/frontier.cu`` (replaces ``_frontier_kernel`` and
-    ``_frontier_kernel_pruned``), bitwise equal to the plain version.
+    ``_frontier_kernel_pruned``), bitwise equal to the plain version.  It
+    has a variant for narrow rows (``dim <= 128``: a warp per frontier
+    slot, the page staged in shared memory) and one for wide rows (a block
+    per slot, entry rows read straight from device memory, the l1/l2 fold
+    split across a warp's lanes); the launcher picks one from ``dim``.
+    ``cap`` is at most 64 in both.
 
 ``frontier_scores`` dispatches on the tensors' device: CPU tensors take the
 plain version; CUDA tensors launch the kernel or raise — there is no
-fallback.  ``frontier_scores.launches`` counts kernel launches, and
-``frontier_scores.pruned_launches`` the subset that ran with the filter.
+fallback.  ``frontier_scores.launches`` counts kernel launches,
+``frontier_scores.pruned_launches`` the subset that ran with the filter and
+``frontier_scores.wide_launches`` the subset that ran the wide variant.
 """
 from __future__ import annotations
 
@@ -100,6 +106,7 @@ def _lib():
     lib.frontier_scores_launch.restype = i
     lib.frontier_max_dim.restype = i
     lib.frontier_max_cap.restype = i
+    lib.frontier_narrow_max_dim.restype = i
     return lib
 
 
@@ -157,6 +164,8 @@ def _frontier_scores_cuda(fids, queries, vecs, radius, internal_valid,
     frontier_scores.launches += 1
     if prune:
         frontier_scores.pruned_launches += 1
+    if dim > lib.frontier_narrow_max_dim():
+        frontier_scores.wide_launches += 1
     return outs
 
 
@@ -178,3 +187,4 @@ def frontier_scores(fids, queries, vecs, radius, internal_valid, leaf_valid,
 
 frontier_scores.launches = 0
 frontier_scores.pruned_launches = 0
+frontier_scores.wide_launches = 0

@@ -1,0 +1,110 @@
+"""GQA attention block: full-sequence forward (the flash kernel) and cached
+decode.  Port of ``repro/models/attention.py``.
+
+Projection weights keep the reference's head-shaped layout (``wq`` [D, H,
+dh], ``wk``/``wv`` [D, KV, dh], ``wo`` [H, dh, D], optional QKV bias), so a
+JAX parameter tree converts leaf for leaf.  ``attn_apply`` repeats K/V to
+the query heads as the reference does (``attention.py:81-84``) and calls
+``kernels.ops.attention``: the hand-written flash kernel for CUDA tensors,
+its plain version for CPU tensors.  ``attn_decode`` writes the new
+position into the cache with a masked (elementwise) write and attends with
+``decode_attention``, which stays plain PyTorch (the JAX package has no
+kernel for it).  Padded query heads (``head_pad``) are zeroed at the
+output, so padding is exactly inert.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.attention_plain import decode_attention
+from repro_torch.models.layers import _frozen, apply_rope, truncated_normal
+
+
+class Attention(nn.Module):
+    def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = map(_frozen, (wq, wk, wv, wo))
+        self.bq, self.bk, self.bv = (None if t is None else _frozen(t)
+                                     for t in (bq, bk, bv))
+
+    @classmethod
+    def init(cls, cfg, dtype, *, generator, device=None):
+        D, dh = cfg.d_model, cfg.d_head
+        H, KV = cfg.padded_heads, cfg.padded_kv_heads
+        tn = lambda shape, scale: truncated_normal(
+            shape, scale, dtype, generator=generator, device=device)
+        scale = D ** -0.5
+        w = [tn((D, H, dh), scale), tn((D, KV, dh), scale),
+             tn((D, KV, dh), scale), tn((H, dh, D), (H * dh) ** -0.5)]
+        b = []
+        if cfg.qkv_bias:
+            z = lambda n: torch.zeros((n, dh), dtype=dtype, device=w[0].device)
+            b = [z(H), z(KV), z(KV)]
+        return cls(*w, *b)
+
+
+def _head_mask(cfg, out):
+    """Zero the padded q-heads (axis 1 of [b, H, s, dh])."""
+    Hp = cfg.padded_heads
+    if Hp == cfg.n_heads:
+        return out
+    mask = (torch.arange(Hp, device=out.device) < cfg.n_heads).to(out.dtype)
+    return out * mask[None, :, None, None]
+
+
+def _project_qkv(p: Attention, cfg, x, pos):
+    """x: [b, s, D] -> q [b, H, s, dh], k/v [b, KV, s, dh]."""
+    q = torch.einsum("bsd,dhe->bhse", x, p.wq.to(x.dtype))
+    k = torch.einsum("bsd,dhe->bhse", x, p.wk.to(x.dtype))
+    v = torch.einsum("bsd,dhe->bhse", x, p.wv.to(x.dtype))
+    if p.bq is not None:
+        q = q + p.bq.to(x.dtype)[None, :, None, :]
+        k = k + p.bk.to(x.dtype)[None, :, None, :]
+        v = v + p.bv.to(x.dtype)[None, :, None, :]
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, pos[:, None, :], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None, :], cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(p: Attention, out):
+    """out: [b, H, s, dh] -> [b, s, D]."""
+    return torch.einsum("bhse,hed->bsd", out, p.wo.to(out.dtype))
+
+
+def attn_apply(p: Attention, cfg, x, *, pos, attention=None):
+    """Full-sequence causal attention.  x: [b, s, D]; pos: [b, s].
+    ``attention`` replaces ``ops.attention`` (the plain version on the card,
+    for comparisons); None takes the device's default."""
+    q, k, v = _project_qkv(p, cfg, x, pos)
+    g = cfg.padded_heads // cfg.padded_kv_heads
+    if g > 1:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+    out = (attention or ops.attention)(q, k, v, causal=True)
+    return _out_proj(p, _head_mask(cfg, out))
+
+
+def attn_decode(p: Attention, cfg, x1, cache_kv, pos_scalar: int):
+    """Single-token decode.  x1: [b, 1, D]; cache_kv: (k, v) [b, KV, S, dh];
+    pos_scalar: position of the new token.  Returns (y1, new_cache)."""
+    b = x1.shape[0]
+    dev = x1.device
+    pos = torch.full((b, 1), pos_scalar, dtype=torch.int32, device=dev)
+    q, k, v = _project_qkv(p, cfg, x1, pos)
+    ck, cv = cache_kv
+    S = ck.shape[2]
+    hit = (torch.arange(S, device=dev) == pos_scalar)[None, None, :, None]
+    ck = torch.where(hit, k.to(ck.dtype), ck)
+    cv = torch.where(hit, v.to(cv.dtype), cv)
+    kv_len = torch.full((b,), pos_scalar + 1, dtype=torch.int32, device=dev)
+    out = decode_attention(q, ck.to(q.dtype), cv.to(q.dtype), kv_len=kv_len)
+    return _out_proj(p, _head_mask(cfg, out)), (ck, cv)
+
+
+def init_kv_cache(cfg, batch: int, length: int, dtype, device) -> tuple:
+    shape = (batch, cfg.padded_kv_heads, length, cfg.d_head)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

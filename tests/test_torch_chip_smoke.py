@@ -1,0 +1,81 @@
+"""``chip_smoke.py`` rehearsed on the CPU at a tiny size.
+
+Every phase of the on-card smoke test except the kernel build and the
+profiler runs here on CPU tensors (plain versions of the kernels), with
+JAX blocked: the index slice (``run``) and the kNN-LM serving slice
+(``run_lm``, a 2-layer qwen2.5-3b smoke model).  This keeps the script's
+control flow, shapes and checks working between chip runs; the launch
+counts are only checked on the card.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+TINY = dict(n=3000, dims=6, capacity=8, b_bench=16, b_exact=8, b_parity=8,
+            b_recheck=8, n_small=1000, kernel_b=8, kernel_F=8, kernel_N=50,
+            dist_nq=16, dist_ne=64, n_insert=40, timing_reps=2)
+LM_TINY = dict(
+    arch="qwen2.5-3b", smoke=True, prefill_b=2, prefill_s=16,
+    serve_argv=["--knn", "--batch", "2", "--prompt-len", "4", "--steps", "3"],
+    ds_seqs=4, ds_len=32, ds_chunk=2, ds_evict=16, ret_bs=[2, 4],
+    wide_b=2, wide_F=4, wide_cap=8, wide_N=16, wide_dims=[160, 129, 131],
+    flash_cases={"path_f32": [1, 4, 4, 40, 40, 16, True, "float32"],
+                 "path_bf16": [1, 4, 4, 40, 40, 16, True, "bfloat16"],
+                 "gqa_sq<sk": [1, 4, 2, 20, 40, 16, True, "float32"],
+                 "noncausal_sq>sk": [1, 4, 2, 30, 12, 16, False, "float32"]},
+    prune_nq=16, prune_ne=64, prune_d=5, timing_reps=2)
+KEYS = {"name", "route", "source", "replaces", "launches", "launches_per_pass",
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+
+
+def _rehearse(call: str):
+    code = textwrap.dedent(f"""
+        import json, sys
+        sys.modules["jax"] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        import chip_smoke
+        out = chip_smoke.{call}
+        print("RESULT", json.dumps(out))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    phases = [json.loads(ln)["phase"] for ln in proc.stdout.splitlines()
+              if ln.startswith("{")]
+    rows = json.loads(proc.stdout.split("RESULT ", 1)[1])
+    return phases, rows
+
+
+def test_index_slice_rehearses_on_the_cpu():
+    phases, rows = _rehearse(f"run({TINY!r}, 'cpu')")
+    assert phases == ["kernel_frontier", "kernel_distance", "build_tree",
+                      "knn_bench_geometry", "knn_exact_geometry", "range_search",
+                      "insert_delete", "descent_kernel_vs_plain"]
+    assert [r["name"] for r in rows] == ["frontier_scores", "frontier_scores[parent_prune]",
+                                         "pairwise_distance"]
+    for r in rows:
+        assert set(r) == KEYS and r["route"] == "cuda"
+
+
+def test_lm_slice_rehearses_on_the_cpu():
+    cfg = json.loads(json.dumps(LM_TINY))
+    phases, rows = _rehearse(f"run_lm({cfg!r}, 'cpu')")
+    assert phases == ["kernel_frontier_wide", "kernel_flash", "kernel_distance_prune",
+                      "lm_serve", "knnlm_datastore", "lm_path_launches"]
+    assert [r["name"] for r in rows] == [
+        "frontier_scores[wide]", "frontier_scores[wide,parent_prune]",
+        "pairwise_distance_prune", "flash_attention_fwd"]
+    assert [r["replaces"].rsplit(":", 1)[1] for r in rows] == ["109", "121", "62", "38"]
+    for r in rows:
+        assert set(r) == KEYS and r["route"] == "cuda"
+        assert (ROOT / r["source"]).exists()

@@ -75,7 +75,8 @@ def test_brute_force_knn_bitwise_vs_jax(metric):
     Q = (X[100:132] + 0.004).astype(np.float32)
     mesh = Mesh(np.asarray(jax.devices()[:1]), ("model",))
     jd, ji = jax_brute(jnp.asarray(X), mesh, jnp.asarray(Q), k=8, metric=metric)
-    td, ti = brute_force_knn(torch.from_numpy(X), Q, k=8, metric=metric)
+    td, ti = brute_force_knn(torch.from_numpy(X), Q, k=8, metric=metric,
+                             device="cpu")
     if metric == "d_inf":
         np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
@@ -87,9 +88,20 @@ def test_brute_force_knn_chunked_scan_keeps_tie_order(monkeypatch):
     base = np.random.default_rng(6).random((50, 6)).astype(np.float32)
     X = np.repeat(base, 5, axis=0)                  # every distance five times
     Q = base[:10] + 0.01
-    whole = brute_force_knn(torch.from_numpy(X), Q, k=12)
+    whole = brute_force_knn(torch.from_numpy(X), Q, k=12, device="cpu")
     monkeypatch.setattr(distributed, "_SCAN_ELEMS", 10 * 17)  # 17-entry chunks
-    chunked = brute_force_knn(torch.from_numpy(X), Q, k=12)
+    chunked = brute_force_knn(torch.from_numpy(X), Q, k=12, device="cpu")
     assert torch.equal(whole[0], chunked[0]) and torch.equal(whole[1], chunked[1])
     with pytest.raises(ValueError, match="k must be"):
-        brute_force_knn(torch.from_numpy(X), Q, k=len(X) + 1)
+        brute_force_knn(torch.from_numpy(X), Q, k=len(X) + 1, device="cpu")
+
+
+def test_brute_force_knn_runs_on_the_device_it_is_given(monkeypatch):
+    X = clustered(400, dims=5, seed=8)
+    Q = X[:6] + 0.01
+    d, i = brute_force_knn(X, Q, k=4, device="cpu")          # numpy in
+    assert d.device.type == i.device.type == "cpu"
+    assert torch.equal(i[:, 0], torch.arange(6))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        brute_force_knn(X, Q, k=4)                            # None = the card

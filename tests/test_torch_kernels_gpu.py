@@ -19,7 +19,11 @@ from repro_torch.core.distributed import brute_force_knn  # noqa: E402
 from repro_torch.core.engine import SMTreeEngine  # noqa: E402
 from repro_torch.data.datagen import clustered, uniform  # noqa: E402
 from repro_torch.kernels.distance import (pairwise_distance,  # noqa: E402
+                                          pairwise_distance_prune,
+                                          pairwise_distance_prune_torch,
                                           pairwise_distance_torch)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_fwd, flash_attention_torch)
 from repro_torch.kernels.frontier import (_PRUNE_PAD,  # noqa: E402
                                           frontier_scores,
                                           frontier_scores_torch)
@@ -47,7 +51,9 @@ def _pages(rng, dev, N, cap, dim):
 
 @pytest.mark.parametrize("prune", [False, True])
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("cap,dim", [(8, 5), (32, 20), (40, 33), (64, 128)])
+@pytest.mark.parametrize("cap,dim", [(8, 5), (32, 20), (40, 33), (64, 128),
+                                     (32, 2048), (16, 1023), (32, 896),
+                                     (64, 129)])
 def test_frontier_kernel_bitwise(cuda, metric, prune, cap, dim):
     rng = np.random.default_rng(cap * 1000 + dim)
     N, b, w = 37, 9, 6
@@ -102,10 +108,11 @@ def test_frontier_wrapper_checks_and_counts(cuda):
                         metric="d_inf")
     with pytest.raises(ValueError):
         frontier_scores(fids, q.cpu(), vecs, radius, iv, lv, metric="d_inf")
-    big = torch.zeros((5, 8, 129), device=cuda)
+    wide = torch.zeros((5, 65, 4), device=cuda)       # cap above 64
+    r65 = torch.zeros((5, 65), device=cuda)
+    v65 = torch.zeros((5, 65), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
-        frontier_scores(fids, torch.zeros((2, 129), device=cuda), big, radius,
-                        iv, lv, metric="d_inf")
+        frontier_scores(fids, q, wide, r65, v65, v65, metric="d_inf")
     assert frontier_scores.launches == before + 1
 
 
@@ -179,5 +186,115 @@ def test_brute_force_knn_on_card_matches_cpu(cuda):
     X = clustered(5000, dims=20, seed=7)
     Q = X[:40] + 0.01
     dg, ig = brute_force_knn(torch.from_numpy(X).to(cuda), Q, k=9)
-    dc, ic = brute_force_knn(torch.from_numpy(X), Q, k=9)
+    dc, ic = brute_force_knn(X, Q, k=9, device="cpu")
     assert torch.equal(dg.cpu(), dc) and torch.equal(ig.cpu(), ic)
+
+
+def _qkv(rng, dev, b, h, hk, sq, sk, d, dtype):
+    t = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+    return t(b, h, sq, d), t(b, hk, sk, d), t(b, hk, sk, d)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hk,sq,sk,d", [
+    (1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 256, 64), (1, 8, 1, 100, 100, 32),
+    (1, 2, 2, 257, 257, 128), (1, 16, 2, 300, 300, 128), (2, 4, 4, 33, 70, 16),
+    (1, 2, 1, 65, 65, 256), (1, 2, 2, 9, 200, 96)])
+def test_flash_kernel_matches_plain(cuda, b, h, hk, sq, sk, d, causal, dtype, tol):
+    rng = np.random.default_rng(b * 7 + sq + sk + d)
+    q, k, v = _qkv(rng, cuda, b, h, hk, sq, sk, d, dtype)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_torch(q, k, v, causal=causal)
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_non_causal_longer_queries_and_refusals(cuda):
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, cuda, 1, 4, 2, 150, 40, 64, torch.float32)
+    torch.testing.assert_close(flash_attention_fwd(q, k, v, causal=False),
+                               flash_attention_torch(q, k, v, causal=False),
+                               rtol=2e-4, atol=2e-4)
+    before = flash_attention_fwd.launches
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k, v, causal=True)            # causal sq > sk
+    with pytest.raises(RuntimeError):
+        flash_attention_fwd(q.requires_grad_(), k, v, causal=False)
+    q2, k2, v2 = _qkv(rng, cuda, 1, 2, 2, 8, 8, 264, torch.float32)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q2, k2, v2)                       # d > 256
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q2[..., :64].contiguous(), k2[..., :64].contiguous().half(),
+                            v2[..., :64].contiguous())
+    assert flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("metric", ["d_inf", "sqeuclidean", "ip"])
+@pytest.mark.parametrize("nq,ne,d", [(32, 48, 16), (100, 130, 20), (7, 257, 96)])
+def test_distance_prune_kernel_matches_plain(cuda, metric, nq, ne, d):
+    rng = np.random.default_rng(nq * 31 + ne)
+    q = torch.from_numpy(rng.random((nq, d), np.float32)).to(cuda)
+    e = torch.from_numpy(rng.random((ne, d), np.float32)).to(cuda)
+    lo, hi = {"ip": (-0.2 * d, -0.05 * d), "sqeuclidean": (0.1 * d ** 0.5, 0.35 * d ** 0.5),
+              "d_inf": (0.0, 0.6)}[metric]
+    r_q = torch.from_numpy(rng.uniform(lo, hi, nq).astype(np.float32)).to(cuda)
+    r_e = torch.from_numpy(rng.uniform(lo, hi, ne).astype(np.float32)).to(cuda)
+    before = pairwise_distance_prune.launches
+    gd, gm = pairwise_distance_prune(q, e, r_q, r_e, metric)
+    wd, wm = pairwise_distance_prune_torch(q, e, r_q, r_e, metric)
+    assert pairwise_distance_prune.launches == before + 1
+    assert gm.dtype == torch.bool
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
+    true_d = wd.clamp_min(0).sqrt() if metric == "sqeuclidean" else wd
+    decided = (true_d - (r_q[:, None] + r_e[None, :])).abs() > 1e-6
+    assert torch.equal(gm[decided], wm[decided])
+    assert gm[decided].any() and (~gm[decided]).any()
+
+
+@pytest.mark.parametrize("metric", ["d_inf", "sqeuclidean", "ip"])
+def test_distance_prune_kernel_boundary_is_inclusive(cuda, metric):
+    offsets = torch.tensor([0.25, 0.5, 1.0, 2.0], device=cuda)
+    q = torch.zeros((8, 32), device=cuda)
+    e = torch.zeros((4, 32), device=cuda)
+    e[:, 0] = offsets
+    dist = torch.zeros(4, device=cuda) if metric == "ip" else offsets
+    r_q = torch.full((8,), float(dist[0]) * 0.5, device=cuda)
+    r_e = dist - float(dist[0]) * 0.5
+    _, mask = pairwise_distance_prune(q, e, r_q, r_e, metric)
+    assert bool(mask.all())
+
+
+def test_lm_forward_through_the_flash_kernel_matches_plain(cuda):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    cfg = smoke_config("qwen2.5-3b")
+    params = M.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), device=cuda)
+    before = flash_attention_fwd.launches
+    got, _ = M.forward(params, cfg, {"tokens": toks})
+    assert flash_attention_fwd.launches == before + cfg.n_layers
+    want, _ = M.forward(params, cfg, {"tokens": toks}, _attention=flash_attention_torch)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_knnlm_retrieval_kernel_matches_plain_descent(cuda, metric):
+    from repro_torch.serve.knnlm import KnnLmConfig, KnnLmDatastore
+    rng = np.random.default_rng(11)
+    keys = rng.standard_normal((3000, 384)).astype(np.float32)
+    store = KnnLmDatastore(KnnLmConfig(metric=metric), 384, device=cuda)
+    store.build(keys, rng.integers(0, 500, 3000).astype(np.int32))
+    q = torch.from_numpy(keys[:16] + 0.05).to(cuda)
+    before = frontier_scores.wide_launches
+    got = store.retrieve(q)
+    assert frontier_scores.wide_launches > before
+    want = store.retrieve(q, _scorer=frontier_scores_torch)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert store.evict_before(100) == 100 and store.engine.validate()
+    lp = store.knn_logits(q, 500)
+    assert lp.shape == (16, 500) and bool(torch.isfinite(lp).all())
