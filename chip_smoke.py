@@ -40,13 +40,17 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
   8. kernel_flash: the flash kernel against ``flash_attention_torch`` at
      the prefill shape [4, 16, 2048, 128] causal (f32 within 2e-4, bf16
      within 1e-2) and at GQA g=8 with sq != sk, causal and not; times of
-     the kernel, the plain version and SDPA (the library call, sq == sk);
+     the kernel, the plain version and SDPA (the library call, sq == sk),
+     and the bound at the arithmetic the kernel uses (three TF32 tensor-core
+     products per f32 product, one bf16 product in bf16), beside the f32
+     CUDA-core bound (``f32_cuda_core_bound_ms``);
   9. kernel_distance_prune: the distance kernel's prune epilogue against
      its plain version at nq=1024, ne=65,536, d=20;
   then the slice's main path, launch counters zeroed just before:
   10. lm_serve: random weights from a seeded generator on the card, one
       prefill forward at b=4, s=2048 through the flash kernel (36 launches)
-      held against the same forward through the plain attention, and the
+      held against the same forward through the plain attention, with the
+      flash kernel's share of that forward's device time, and the
       ``launch/serve`` loop (b=4, prompt 32, 16 greedy steps) mixing a
       2048-key kNN-LM store; profile_lm: device time by kernel of one
       prefill and one kNN-LM decode step;
@@ -95,6 +99,8 @@ LM_FULL = dict(
     prune_nq=1024, prune_ne=65_536, prune_d=20, timing_reps=5)
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
+H100_TF32_FLOP_PER_S = 495e12     # tensor cores, dense (H100 SXM data sheet)
+H100_BF16_FLOP_PER_S = 989e12     # tensor cores, dense (H100 SXM data sheet)
 
 
 def emit(phase: str, **kw):
@@ -153,6 +159,15 @@ def timers(on_card: bool):
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = nops / H100_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(nbytes: float, nops: float, dtype: str) -> tuple[float, str]:
+    """The flash kernel's bound at the arithmetic it uses: three TF32
+    products per f32 product (3xTF32), one bf16 product per bf16 one."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = (3 * nops / H100_TF32_FLOP_PER_S if dtype == "float32"
+             else nops / H100_BF16_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -655,14 +670,16 @@ def run_lm(cfg: dict, device: str):
             pairs = int(np.clip(qpos + 1, 0, sk).sum()) if causal else sq * sk
             nops = 4.0 * fb * h * d * pairs
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            bms, by = bound(nbytes, nops)
+            bms, by = flash_bound(nbytes, nops, dt)
             row.update(ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal),
                                   iters=10),
                        plain_ms=time_ms(lambda: flash_attention_torch(q, k, v, causal=causal),
                                         iters=3, warmup=1),
                        library_ms=(time_ms(lambda: Fnn.scaled_dot_product_attention(
                            q, k, v, is_causal=causal), iters=10) if on_card else None),
-                       bound_ms=bms, bound_by=by, flops=nops, bytes=nbytes)
+                       bound_ms=bms, bound_by=by,
+                       f32_cuda_core_bound_ms=bound(nbytes, nops)[0],
+                       flops=nops, bytes=nbytes)
         flash_rows[name] = row
         del q, k, v, got, want, diff
         free()
@@ -748,6 +765,31 @@ def run_lm(cfg: dict, device: str):
     del logits, plain_logits
     free()
 
+    # where the time goes: device time by kernel of one prefill forward
+    if on_card:
+        from torch.autograd import DeviceType
+
+        def profile(fn, wall_ms):
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kern = [ev for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA]
+            kern.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+            busy = sum(ev.self_device_time_total for ev in kern) / 1e3
+            flash = sum(ev.self_device_time_total for ev in kern
+                        if "flash_fwd_kernel" in ev.key) / 1e3
+            return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                        device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+                        flash_ms=flash, flash_share_of_busy=flash / busy if busy else 0.0,
+                        kernels=[dict(name=ev.key[:72], ms=ev.self_device_time_total / 1e3,
+                                      calls=ev.count) for ev in kern[:8]])
+
+        prefill_prof = profile(lambda: prefill(params, {"tokens": tokens}),
+                               float(np.median(again)) * 1e3)
+
     args = serve.parser().parse_args(cfg["serve_argv"] + ["--device", device])
     store, store_s = wall(lambda: serve._build_store(mcfg, args.lam, device))
     c0 = counts()
@@ -763,7 +805,9 @@ def run_lm(cfg: dict, device: str):
                       plain_attention_ms=plain_s * 1e3,
                       flash_launches_per_forward=per_forward,
                       max_abs_logit_err=err, max_abs_logit=top,
-                      last_argmax_equal=argmax_eq),
+                      last_argmax_equal=argmax_eq,
+                      flash_share_of_device_time=(prefill_prof["flash_share_of_busy"]
+                                                  if on_card else None)),
          serve=dict(batch=args.batch, prompt_len=args.prompt_len, steps=args.steps,
                     knn=True, lam=args.lam, store_keys=len(store.values),
                     store_build_seconds=store_s,
@@ -772,25 +816,8 @@ def run_lm(cfg: dict, device: str):
                     frontier_launches_per_step=serve_counts["frontier"] / args.steps,
                     launches=serve_counts, sample=toks[0][:12].tolist()))
 
-    # where the time goes: one prefill forward and one kNN-LM decode step
+    # and of one kNN-LM decode step
     if on_card:
-        from torch.autograd import DeviceType
-
-        def profile(fn, wall_ms):
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                fn()
-                torch.cuda.synchronize()
-            kern = [ev for ev in prof.key_averages()
-                    if ev.device_type == DeviceType.CUDA]
-            kern.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
-            busy = sum(ev.self_device_time_total for ev in kern) / 1e3
-            return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                        device_idle_share=max(0.0, 1.0 - busy / wall_ms),
-                        kernels=[dict(name=ev.key[:72], ms=ev.self_device_time_total / 1e3,
-                                      calls=ev.count) for ev in kern[:8]])
-
         cache = M.init_cache(mcfg, args.batch, 8, device=device)
         tok = torch.from_numpy(toks[:, 0]).to(dev)
 
@@ -800,8 +827,7 @@ def run_lm(cfg: dict, device: str):
             return mix_logits(logits, store.knn_logits(h, V), args.lam).argmax(-1)
 
         _, dec_s = wall(decode_knn)
-        emit("profile_lm", prefill=profile(lambda: prefill(params, {"tokens": tokens}),
-                                           float(np.median(again)) * 1e3),
+        emit("profile_lm", prefill=prefill_prof,
              decode_step_knn=profile(decode_knn, dec_s * 1e3))
         del cache
     del store, tokens
@@ -924,7 +950,8 @@ def run_lm(cfg: dict, device: str):
              launches_per_pass={"prefill_forward": per_forward},
              max_abs_err=fl["max_abs_err"], ms=fl["ms"],
              plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"],
-             bound_by=fl["bound_by"], library_ms=fl["library_ms"]),
+             bound_by=fl["bound_by"], library_ms=fl["library_ms"],
+             f32_cuda_core_bound_ms=fl["f32_cuda_core_bound_ms"]),
     ]
 
 

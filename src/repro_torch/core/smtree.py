@@ -67,7 +67,7 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                               "to run the SM-tree on the CPU")
+                               "to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
 

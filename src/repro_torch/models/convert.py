@@ -4,7 +4,8 @@
 numpy arrays (``jax.tree.map(np.asarray, params)``: this module imports no
 JAX) and unstacks the ``[n_periods, ...]`` block leaves of the reference's
 layer scan into one port block per layer, so both packages run the same
-weights.
+weights.  Like every entry point of the port, it puts the weights on the
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -12,14 +13,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.smtree import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Dense, Norm
 
 
 def params_from_jax(params_np: dict, cfg: ArchConfig, *,
-                    device="cpu") -> transformer.LM:
+                    device=None) -> transformer.LM:
     transformer.check_supported(cfg)
+    device = resolve_device(device)
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not "
                                   "ported yet (ROADMAP Queue 1 item 12)")

@@ -77,5 +77,6 @@ def test_lm_slice_rehearses_on_the_cpu():
         "pairwise_distance_prune", "flash_attention_fwd"]
     assert [r["replaces"].rsplit(":", 1)[1] for r in rows] == ["109", "121", "62", "38"]
     for r in rows:
-        assert set(r) == KEYS and r["route"] == "cuda"
+        extra = {"f32_cuda_core_bound_ms"} if r["name"] == "flash_attention_fwd" else set()
+        assert set(r) == KEYS | extra and r["route"] == "cuda"
         assert (ROOT / r["source"]).exists()

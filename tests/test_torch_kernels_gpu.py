@@ -201,7 +201,14 @@ def _qkv(rng, dev, b, h, hk, sq, sk, d, dtype):
 @pytest.mark.parametrize("b,h,hk,sq,sk,d", [
     (1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 256, 64), (1, 8, 1, 100, 100, 32),
     (1, 2, 2, 257, 257, 128), (1, 16, 2, 300, 300, 128), (2, 4, 4, 33, 70, 16),
-    (1, 2, 1, 65, 65, 256), (1, 2, 2, 9, 200, 96)])
+    (1, 2, 1, 65, 65, 256), (1, 2, 2, 9, 200, 96),
+    # the LM's prefill shape [4, 16, 2048, 128] with b and h cut
+    (1, 4, 4, 2048, 2048, 128),
+    # one row either side of the query-tile edges (64 rows a warpgroup,
+    # 128 f32 / 256 bf16 a block) and the key-tile edges (32 f32, 64 bf16)
+    (1, 2, 1, 63, 129, 128), (1, 2, 1, 65, 127, 64), (1, 2, 1, 129, 191, 128),
+    # rows of 50 elements: not a multiple of 16 bytes in either dtype
+    (1, 3, 1, 70, 90, 50)])
 def test_flash_kernel_matches_plain(cuda, b, h, hk, sq, sk, d, causal, dtype, tol):
     rng = np.random.default_rng(b * 7 + sq + sk + d)
     q, k, v = _qkv(rng, cuda, b, h, hk, sq, sk, d, dtype)
@@ -210,6 +217,19 @@ def test_flash_kernel_matches_plain(cuda, b, h, hk, sq, sk, d, causal, dtype, to
     want = flash_attention_torch(q, k, v, causal=causal)
     assert flash_attention_fwd.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_large_logits(cuda, causal, dtype, tol):
+    """q scaled by 8: logits of tens, so the online rescale and the hi/lo
+    split of the f32 path see large values."""
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, cuda, 1, 4, 2, 300, 300, 128, dtype)
+    q = q * 8
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_torch(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 

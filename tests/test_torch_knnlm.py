@@ -154,7 +154,8 @@ def _smoke_pair():
     jcfg = jax_smoke_config("qwen2.5-3b")
     cfg = smoke_config("qwen2.5-3b")
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    return jcfg, jparams, cfg, params
 
 
 @pytest.mark.parametrize("knn", [True, False])

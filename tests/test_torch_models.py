@@ -30,7 +30,7 @@ def _pair(arch, **overrides):
     cfg = dataclasses.replace(smoke_config(arch), **overrides)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
     return jcfg, jparams, cfg, params
 
 
@@ -115,6 +115,15 @@ def test_init_params_shapes_and_count():
     w = params.blocks[0].attn.wq
     assert w.shape == (cfg.d_model, cfg.padded_heads, cfg.d_head)
     assert float(w.abs().max()) <= 2.0 * cfg.d_model ** -0.5 + 1e-6
+
+
+def test_params_from_jax_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA card")
+    cfg = smoke_config("qwen2.5-3b")
+    jparams = JM.init_params(jax_smoke_config("qwen2.5-3b"), jax.random.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
 
 
 def test_full_config_matches_reference_numbers():
