@@ -59,7 +59,16 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
       and b=64 (k=8, F=128) with the kernel descent held bitwise against
       the plain-scorer descent, evict_before(1024) through Delete,
       validate(), and the bitwise check again; then the slice's launch
-      counts.
+      counts;
+  and, outside the counts,
+  12. frontier_replay: the frontiers that the descent passed to the scorer
+      in the first retrieval at b=4 and b=64 (captured through the plain
+      scorer), replayed level by level through the wide kernel, bitwise
+      against the plain version: ms (CUDA events around back-to-back
+      calls, host overhead included), device ms (CUDA events around calls
+      queued behind a spin kernel, so that they run back to back on the
+      card: ``device_ms``), live evaluations, pairs, distinct nodes and
+      bound for each level and summed over a retrieval.
 
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
@@ -191,6 +200,67 @@ def frontier_traffic(fids, queries, want, cap: int, prune: bool):
               + (b * F * 4 + b * 4 if prune else 0)
               + 4 * b * F * cap * 4)
     return nbytes, n_live * dim * 3 + 4 * b * F * cap, n_live
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()``: CUDA events around ``iters`` calls that
+    the host enqueues while the stream still runs a ~50 ms spin kernel
+    (``torch.cuda._sleep``), so that the calls run back to back on the card.  Free of the host's
+    launch overhead, which plain back-to-back event timing of a small
+    launch measures instead."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def frontier_replay(captured: dict, pages: dict, on_card: bool):
+    """Phase 12: each captured level through the wide kernel (see the
+    module docstring).  ``captured`` maps b to that retrieval's scorer calls
+    (fids, queries, metric and the filter inputs), ``pages`` holds the
+    tree arrays they were scored against."""
+    import torch
+
+    from repro_torch.kernels.frontier import frontier_scores, frontier_scores_torch
+    sync, time_ms, _ = timers(on_card)
+    cap = pages["vecs"].shape[1]
+    out = {}
+    for rb, calls in captured.items():
+        levels = []
+        for c in calls:
+            fids = c["fids"]
+            filt = {k: c[k] for k in ("pdist", "qpd", "rq") if c[k] is not None}
+            args = (fids, c["queries"], pages["vecs"], pages["radius"], pages["iv"],
+                    pages["lv"])
+            kw = dict(metric=c["metric"], **filt)
+            got = frontier_scores(*args, **kw)
+            want = frontier_scores_torch(*args, **kw)
+            sync()
+            for name, g, w in zip(("dmax", "score", "leaf_d", "dq"), got, want):
+                check(torch.equal(g, w), f"replayed frontier b={rb} w={fids.shape[1]} "
+                                         f"{name} not bitwise")
+            nbytes, nops, n_live = frontier_traffic(fids, c["queries"], want, cap, bool(filt))
+            bms, by = bound(nbytes, nops)
+            kernel = lambda: frontier_scores(*args, **kw)
+            row = dict(w=fids.shape[1], pairs=fids.numel(), prune=bool(filt),
+                       distinct_nodes=int(torch.unique(fids[fids >= 0]).numel()),
+                       live_evals=n_live, bound_ms=bms, bound_by=by, ms=time_ms(kernel))
+            if on_card:
+                row.update(device_ms=device_ms(kernel))
+            levels.append(row)
+            del got, want
+        total = {k: sum(r[k] for r in levels) for k in levels[0]
+                 if k in ("ms", "device_ms", "bound_ms", "live_evals", "pairs")}
+        out[f"b{rb}"] = dict(levels=levels, per_retrieval=total)
+    return out
 
 
 def run(cfg: dict, device: str):
@@ -568,8 +638,8 @@ def run(cfg: dict, device: str):
 def run_lm(cfg: dict, device: str):
     """The kNN-LM serving slice: its kernels against their plain versions
     (outside the launch counts), then its main path with the counts zeroed
-    just before and read just after.  Returns the slice's rows of the
-    ``kernels`` line."""
+    just before and read just after, then the replayed frontiers.  Returns
+    the slice's rows of the ``kernels`` line."""
     import numpy as np
     import torch
     import torch.nn.functional as Fnn
@@ -860,14 +930,35 @@ def run_lm(cfg: dict, device: str):
                      n_nodes=int(tree.n_nodes), max_nodes=tree.max_nodes,
                      page_bytes=tree.vecs.numel() * 4)
 
-    def retrieval(tag):
+    # the first retrieval's frontiers, as the descent passes them to the
+    # scorer (through the plain scorer: no launch), for phase 12
+    captured, pages = {}, {}
+
+    def recorder(calls):
+        def scorer(fids, queries, vecs, radius, iv, lv, *, metric, pdist=None, qpd=None,
+                   rq=None):
+            if not pages:
+                pages.update(vecs=vecs.clone(), radius=radius.clone(), iv=iv.clone(),
+                             lv=lv.clone())
+            if pdist is not None and "pdist" not in pages:
+                pages["pdist"] = pdist.clone()
+            clone = lambda t: None if t is None else t.clone()
+            calls.append(dict(fids=fids.clone(), queries=queries.clone(), metric=metric,
+                              pdist=None if pdist is None else pages["pdist"],
+                              qpd=clone(qpd), rq=clone(rq)))
+            return frontier_scores_torch(fids, queries, vecs, radius, iv, lv, metric=metric,
+                                         pdist=pdist, qpd=qpd, rq=rq)
+        return scorer
+
+    def retrieval(tag, capture=False):
         out = {}
         for rb in cfg["ret_bs"]:
             q = Q[:rb]
             c0 = counts()
             res = store.retrieve(q)
             launches = delta(c0)
-            ref = store.retrieve(q, _scorer=frontier_scores_torch)
+            ref = store.retrieve(q, _scorer=(recorder(captured.setdefault(rb, []))
+                                             if capture else frontier_scores_torch))
             for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
                 check(torch.equal(getattr(res, f), getattr(ref, f)),
                       f"datastore {tag} b={rb}: kernel and plain descents differ in {f}")
@@ -885,7 +976,7 @@ def run_lm(cfg: dict, device: str):
                 min_id=int(res.ids.min()))
         return out
 
-    before = retrieval("built")
+    before = retrieval("built", capture=True)
     n_ev = cfg["ds_evict"]
     nodes_before = int(store.engine.tree.alive.sum())
     evicted, evict_s = wall(lambda: store.evict_before(n_ev))
@@ -909,6 +1000,13 @@ def run_lm(cfg: dict, device: str):
         check(path["frontier_pruned"] > 0 and path["frontier"] > path["frontier_pruned"],
               "the wide frontier ran without or only with the parent filter")
     del store, params, keys
+    free()
+
+    # ---------------------------------------------------------------- 12
+    replay = frontier_replay(captured, pages, on_card)
+    emit("frontier_replay", store_keys=len(vals), k=8, max_frontier=128,
+         dim=D, metric="l2", results=replay)
+    del captured, pages
     free()
 
     # every frontier launch of this path is wide (checked above on the card):

@@ -22,10 +22,15 @@ Two implementations of one function:
   * the CUDA kernel ``csrc/frontier.cu`` (replaces ``_frontier_kernel`` and
     ``_frontier_kernel_pruned``), bitwise equal to the plain version.  It
     has a variant for narrow rows (``dim <= 128``: a warp per frontier
-    slot, the page staged in shared memory) and one for wide rows (a block
-    per slot, entry rows read straight from device memory, the l1/l2 fold
-    split across a warp's lanes); the launcher picks one from ``dim``.
-    ``cap`` is at most 64 in both.
+    slot, the page staged in shared memory) and one for wide rows; the
+    launcher picks one from ``dim``.  ``cap`` is at most 64 in both.  The
+    wide variant reads entry rows straight from device memory with 16-byte
+    loads and folds l1/l2 in registers (each lane's slots in ``_sum_last``'s
+    order, then shuffles; a warp buffer in shared memory only for dims
+    whose halving leaves the lane mapping early).  A block takes a run of
+    up to 8 consecutive pairs, stages their query rows once and writes
+    their outputs as whole rows; a warp scores one (pair, entry) at a
+    time.
 
 ``frontier_scores`` dispatches on the tensors' device: CPU tensors take the
 plain version; CUDA tensors launch the kernel or raise — there is no
@@ -96,11 +101,8 @@ def frontier_scores_torch(fids, queries, vecs, radius, internal_valid,
             torch.where(iv, d, _INF))
 
 
-@functools.cache
-def _lib():
-    """The built library, with its C signatures declared (once)."""
-    from repro_torch.kernels import _build
-    lib = _build.load("frontier")
+def _declare(lib):
+    """Declare the C signatures of a build of ``csrc/frontier.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.frontier_scores_launch.argtypes = [p] * 13 + [i] * 7 + [p]
     lib.frontier_scores_launch.restype = i
@@ -108,6 +110,13 @@ def _lib():
     lib.frontier_max_cap.restype = i
     lib.frontier_narrow_max_dim.restype = i
     return lib
+
+
+@functools.cache
+def _lib():
+    """The built library, with its C signatures declared (once)."""
+    from repro_torch.kernels import _build
+    return _declare(_build.load("frontier"))
 
 
 def _check(name, t, dtype, shape, device):

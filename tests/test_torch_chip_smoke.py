@@ -71,7 +71,8 @@ def test_lm_slice_rehearses_on_the_cpu():
     cfg = json.loads(json.dumps(LM_TINY))
     phases, rows = _rehearse(f"run_lm({cfg!r}, 'cpu')")
     assert phases == ["kernel_frontier_wide", "kernel_flash", "kernel_distance_prune",
-                      "lm_serve", "knnlm_datastore", "lm_path_launches"]
+                      "lm_serve", "knnlm_datastore", "lm_path_launches",
+                      "frontier_replay"]
     assert [r["name"] for r in rows] == [
         "frontier_scores[wide]", "frontier_scores[wide,parent_prune]",
         "pairwise_distance_prune", "flash_attention_fwd"]

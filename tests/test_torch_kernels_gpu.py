@@ -53,7 +53,8 @@ def _pages(rng, dev, N, cap, dim):
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("cap,dim", [(8, 5), (32, 20), (40, 33), (64, 128),
                                      (32, 2048), (16, 1023), (32, 896),
-                                     (64, 129)])
+                                     (64, 129), (32, 384), (16, 3072),
+                                     (16, 4096)])
 def test_frontier_kernel_bitwise(cuda, metric, prune, cap, dim):
     rng = np.random.default_rng(cap * 1000 + dim)
     N, b, w = 37, 9, 6
@@ -76,6 +77,64 @@ def test_frontier_kernel_bitwise(cuda, metric, prune, cap, dim):
     torch.cuda.synchronize()
     for g, wv, name in zip(got, want, ("dmax", "score", "leaf_d", "dq")):
         assert torch.equal(g, wv), f"{metric}/{name}"
+
+
+def _wide_launch_matches_plain(fids, queries, vecs, radius, iv, lv, metric, filt):
+    got = frontier_scores(fids, queries, vecs, radius, iv, lv, metric=metric, **filt)
+    want = frontier_scores_torch(fids, queries, vecs, radius, iv, lv, metric=metric, **filt)
+    torch.cuda.synchronize()
+    for g, wv, name in zip(got, want, ("dmax", "score", "leaf_d", "dq")):
+        assert torch.equal(g, wv), f"{metric}/{name}"
+    return want
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b,w", [(1, 1), (4, 1), (64, 1), (64, 32), (2048, 1)])
+def test_frontier_wide_every_pair_on_one_node(cuda, metric, b, w):
+    """Level 0's shape (every query scores the root), and launches wide
+    enough that blocks take runs of 8 pairs on one node (at w = 1, 8 query
+    rows: more dynamic shared memory than a launch gets by default); under
+    the filter with its own qpd and rq per pair, so one shared row is kept
+    by some queries and dropped by others."""
+    rng = np.random.default_rng(b * 100 + w)
+    N, cap, dim = 6, 32, 2048
+    vecs, radius, iv, lv = _pages(rng, cuda, N, cap, dim)
+    scale = {"d_inf": 4.0, "l2": (2.0 * dim) ** 0.5, "l1": 1.128 * dim}[metric]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(cuda)
+    pdist = t(np.abs(1 + 0.15 * rng.normal(size=(N, cap))) * scale)
+    qpd = t(np.abs(1 + 0.15 * rng.normal(size=(b, w))) * scale)
+    rq = t(rng.uniform(0.02, 0.2, b) * scale)
+    fids = torch.full((b, w), 3, dtype=torch.int32, device=cuda)
+    queries = t(rng.normal(size=(b, dim)))
+    want = _wide_launch_matches_plain(fids, queries, vecs, radius, iv, lv, metric,
+                                      dict(pdist=pdist, qpd=qpd, rq=rq))
+    if b > 1:
+        kept = (torch.isfinite(want[0]) | torch.isfinite(want[2])).reshape(b * w, cap)
+        valid = (iv | lv)[3]
+        assert bool((kept.any(0) & ~kept.all(0) & valid).any()), "no row split by the filter"
+
+
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dim", [2048, 1023, 3072])
+def test_frontier_wide_duplicate_ids_among_empty_slots(cuda, metric, prune, dim):
+    """A few node ids repeated, unsorted, among -1 slots, in a launch with
+    runs of 8 pairs a block."""
+    rng = np.random.default_rng(dim + prune)
+    N, cap, b, w = 9, 16, 64, 24
+    vecs, radius, iv, lv = _pages(rng, cuda, N, cap, dim)
+    fids = rng.choice([0, 4, 8], size=(b, w)).astype(np.int32)
+    fids[rng.random((b, w)) < 0.4] = -1
+    filt = {}
+    if prune:
+        qpd = np.abs(rng.normal(size=(b, w))).astype(np.float32)
+        qpd[fids < 0] = np.inf
+        filt = dict(pdist=torch.from_numpy(np.abs(rng.normal(size=(N, cap))).astype(np.float32)).to(cuda),
+                    qpd=torch.from_numpy(qpd).to(cuda),
+                    rq=torch.from_numpy(np.abs(rng.normal(size=b)).astype(np.float32)).to(cuda))
+    queries = torch.from_numpy(rng.normal(size=(b, dim)).astype(np.float32)).to(cuda)
+    _wide_launch_matches_plain(torch.from_numpy(fids).to(cuda), queries, vecs, radius,
+                               iv, lv, metric, filt)
 
 
 def test_frontier_prune_boundary_is_inclusive(cuda):
