@@ -12,12 +12,14 @@ The index slice (``run``):
 
   1. device: the card's name, the device count and nvidia-smi's name and
      power limit;
-  2. build: nvcc build seconds of every kernel and its -Xptxas -v summary;
+  2. build: nvcc build seconds of every source and its -Xptxas -v summary
+     (instantiations, registers and spilled bytes of each kernel);
   3. each kernel against its plain PyTorch version at the main path's
      shapes (frontier scorer: bitwise for d_inf/l2/l1, filter off and on;
      distance scan: d_inf bitwise, sqeuclidean/ip within 1e-5), with
      CUDA-event times of the kernel, the plain version and the library
-     call that computes the same function, where there is one;
+     call that computes the same function, where there is one (the narrow
+     frontier rows also in device time, ``device_ms``);
   4. the main path at full size: 1,000,000 clustered 20-d objects, bulk
      build, kNN at the bench geometry (k=10, max_frontier=64, b=1024) and at
      the smallest exact geometry (max_frontier 2048..16384, b=256) held
@@ -28,6 +30,10 @@ The index slice (``run``):
      kNN check again against a scan of the updated set;
   then the kernel launch counts of that main path (phases 4-5, counters
   zeroed just before), and, outside the count,
+  5b. frontier_replay_index: the frontiers that one cohort passed to the
+     scorer at the bench and the exact geometry (captured through the
+     plain scorer in phase 4), replayed level by level through the narrow
+     kernel as phase 12 does for the wide one;
   6. the cohort descent through the kernels against the same descent
      through the plain scorer, bitwise (all five result fields and the
      level-stat stacks), on the d_inf tree and on 100k-object l2/l1 trees.
@@ -180,6 +186,39 @@ def flash_bound(nbytes: float, nops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_summary(log: str) -> dict:
+    """nvcc's ``-Xptxas -v`` output for one source, by kernel: for each
+    ``..._kernel`` named in the mangled entry functions, its instantiations,
+    the least and most registers any of them uses, the spilled bytes
+    (stores and loads) summed over them, and the template arguments of
+    those that spill (``spilling``)."""
+    import re
+    out: dict = {}
+    cur = args = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"([A-Za-z][A-Za-z_]*kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            cur = out.setdefault(k.group(1) if k else m.group(1),
+                                 {"instances": 0, "registers": [], "spill_bytes": 0,
+                                  "spilling": []})
+            cur["instances"] += 1
+            args = ("<" + ",".join(re.findall(r"L[ib](\d+)E", k.group(2))) + ">"
+                    if k and k.group(2) else "")
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and int(m.group(1)) + int(m.group(2)):
+                cur["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+                cur["spilling"].append(args)
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"].append(int(m.group(1)))
+    for v in out.values():
+        r = v["registers"]
+        v["registers"] = [min(r), max(r)] if r else []
+    return out
+
+
 def frontier_traffic(fids, queries, want, cap: int, prune: bool):
     """(bytes, ops, live entries) of one frontier scoring on this data: each
     referenced page's radius/validity (+pdist) rows and each live entry's
@@ -222,18 +261,40 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def recorder(calls: list, pages: dict):
+    """A scorer that records each call the descent makes (fids, queries,
+    metric and the filter inputs) into ``calls`` and the tree arrays into
+    ``pages`` (once), then scores through the plain version: no launch."""
+    from repro_torch.kernels.frontier import frontier_scores_torch
+
+    def scorer(fids, queries, vecs, radius, iv, lv, *, metric, pdist=None, qpd=None,
+               rq=None):
+        if "vecs" not in pages:
+            pages.update(vecs=vecs.clone(), radius=radius.clone(), iv=iv.clone(),
+                         lv=lv.clone())
+        if pdist is not None and "pdist" not in pages:
+            pages["pdist"] = pdist.clone()
+        clone = lambda t: None if t is None else t.clone()
+        calls.append(dict(fids=fids.clone(), queries=queries.clone(), metric=metric,
+                          pdist=None if pdist is None else pages["pdist"],
+                          qpd=clone(qpd), rq=clone(rq)))
+        return frontier_scores_torch(fids, queries, vecs, radius, iv, lv, metric=metric,
+                                     pdist=pdist, qpd=qpd, rq=rq)
+    return scorer
+
+
 def frontier_replay(captured: dict, pages: dict, on_card: bool):
-    """Phase 12: each captured level through the wide kernel (see the
-    module docstring).  ``captured`` maps b to that retrieval's scorer calls
-    (fids, queries, metric and the filter inputs), ``pages`` holds the
-    tree arrays they were scored against."""
+    """Each captured level through the kernel, bitwise against the plain
+    version, timed and bounded (phases 5b and 12, module docstring).
+    ``captured`` maps a label to one descent's scorer calls (``recorder``),
+    ``pages`` holds the tree arrays they were scored against."""
     import torch
 
     from repro_torch.kernels.frontier import frontier_scores, frontier_scores_torch
     sync, time_ms, _ = timers(on_card)
     cap = pages["vecs"].shape[1]
     out = {}
-    for rb, calls in captured.items():
+    for label, calls in captured.items():
         levels = []
         for c in calls:
             fids = c["fids"]
@@ -245,7 +306,7 @@ def frontier_replay(captured: dict, pages: dict, on_card: bool):
             want = frontier_scores_torch(*args, **kw)
             sync()
             for name, g, w in zip(("dmax", "score", "leaf_d", "dq"), got, want):
-                check(torch.equal(g, w), f"replayed frontier b={rb} w={fids.shape[1]} "
+                check(torch.equal(g, w), f"replayed frontier {label} w={fids.shape[1]} "
                                          f"{name} not bitwise")
             nbytes, nops, n_live = frontier_traffic(fids, c["queries"], want, cap, bool(filt))
             bms, by = bound(nbytes, nops)
@@ -259,8 +320,33 @@ def frontier_replay(captured: dict, pages: dict, on_card: bool):
             del got, want
         total = {k: sum(r[k] for r in levels) for k in levels[0]
                  if k in ("ms", "device_ms", "bound_ms", "live_evals", "pairs")}
-        out[f"b{rb}"] = dict(levels=levels, per_retrieval=total)
+        out[label] = dict(levels=levels, per_descent=total)
     return out
+
+
+def narrow_frontier_inputs(rng, cfg: dict, dev):
+    """The narrow scorer's synthetic geometry (phase 3): b x F slots on
+    ``kernel_N`` random pages of ``capacity`` x ``dims`` uniform rows, 10%
+    empty slots, 80% valid entries, half the pages leaves.  Returns the
+    positional arguments of ``frontier_scores`` and the filter inputs."""
+    import numpy as np
+    import torch
+    N, cap, dim = cfg["kernel_N"], cfg["capacity"], cfg["dims"]
+    b, F = cfg["kernel_b"], cfg["kernel_F"]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    vecs = t(rng.random((N, cap, dim), np.float32))
+    radius = t(np.abs(rng.normal(0, 0.1, (N, cap))).astype(np.float32))
+    valid = rng.random((N, cap)) < 0.8
+    is_leaf = rng.random(N) < 0.5
+    iv, lv = t(valid & ~is_leaf[:, None]), t(valid & is_leaf[:, None])
+    fids_np = rng.integers(0, N, (b, F)).astype(np.int32)
+    fids_np[rng.random((b, F)) < 0.1] = -1                  # empty slots
+    queries = t(rng.random((b, dim), np.float32))
+    qpd_np = np.abs(rng.normal(0.5, 0.3, (b, F))).astype(np.float32)
+    qpd_np[fids_np < 0] = np.inf
+    filt = dict(pdist=t(np.abs(rng.normal(0.5, 0.3, (N, cap))).astype(np.float32)),
+                qpd=t(qpd_np), rq=t(np.abs(rng.normal(0.2, 0.1, b)).astype(np.float32)))
+    return (t(fids_np), queries, vecs, radius, iv, lv), filt
 
 
 def run(cfg: dict, device: str):
@@ -294,36 +380,15 @@ def run(cfg: dict, device: str):
         t0 = time.perf_counter()
         secs = _build.build_all()
         total = time.perf_counter() - t0
-        ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                        if "registers" in ln or "spill" in ln]
-                 for name in secs}
+        ptxas = {name: ptxas_summary(_build.build_log(name)) for name in secs}
         emit("build", seconds_total=total, seconds=secs, ptxas=ptxas)
 
     # ---------------------------------------------------------------- 3
     rng = np.random.default_rng(0)
-    N, cap, dim = cfg["kernel_N"], cfg["capacity"], cfg["dims"]
+    dim, cap = cfg["dims"], cfg["capacity"]
     b, F = cfg["kernel_b"], cfg["kernel_F"]
-    pages = dict(
-        vecs=torch.from_numpy(rng.random((N, cap, dim), np.float32)).to(dev),
-        radius=torch.from_numpy(
-            np.abs(rng.normal(0, 0.1, (N, cap))).astype(np.float32)).to(dev))
-    valid = rng.random((N, cap)) < 0.8
-    is_leaf = rng.random(N) < 0.5
-    iv = torch.from_numpy(valid & ~is_leaf[:, None]).to(dev)
-    lv = torch.from_numpy(valid & is_leaf[:, None]).to(dev)
-    fids_np = rng.integers(0, N, (b, F)).astype(np.int32)
-    fids_np[rng.random((b, F)) < 0.1] = -1                  # empty slots
-    fids = torch.from_numpy(fids_np).to(dev)
-    queries = torch.from_numpy(rng.random((b, dim), np.float32)).to(dev)
-    qpd_np = np.abs(rng.normal(0.5, 0.3, (b, F))).astype(np.float32)
-    qpd_np[fids_np < 0] = np.inf
-    filt = dict(
-        pdist=torch.from_numpy(
-            np.abs(rng.normal(0.5, 0.3, (N, cap))).astype(np.float32)).to(dev),
-        qpd=torch.from_numpy(qpd_np).to(dev),
-        rq=torch.from_numpy(
-            np.abs(rng.normal(0.2, 0.1, b)).astype(np.float32)).to(dev))
-    args = (fids, queries, pages["vecs"], pages["radius"], iv, lv)
+    args, filt = narrow_frontier_inputs(rng, cfg, dev)
+    fids, queries = args[:2]
     frontier_rows = {}
     for metric in ("d_inf", "l2", "l1"):
         for prune in (False, True):
@@ -334,14 +399,16 @@ def run(cfg: dict, device: str):
             for name, g, w in zip(("dmax", "score", "leaf_d", "dq"), got, want):
                 check(torch.equal(g, w),
                       f"frontier {metric} prune={prune} {name} not bitwise")
-            ms = time_ms(lambda: frontier_scores(*args, **kw))
+            kernel = lambda: frontier_scores(*args, **kw)
+            ms = time_ms(kernel)
             plain_ms = time_ms(lambda: frontier_scores_torch(*args, **kw), iters=5)
             nbytes, nops, n_live = frontier_traffic(fids, queries, want, cap, prune)
             bms, by = bound(nbytes, nops)
             frontier_rows[(metric, prune)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                ms=ms, device_ms=device_ms(kernel) if on_card else None,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 bytes=nbytes, ops=nops, live_evals=n_live, max_abs_err=0.0)
-    emit("kernel_frontier", shapes=dict(b=b, F=F, cap=cap, dim=dim, N=N),
+    emit("kernel_frontier", shapes=dict(b=b, F=F, cap=cap, dim=dim, N=cfg["kernel_N"]),
          bitwise=True, results={f"{m}/{'prune' if p else 'plain'}": r
                                 for (m, p), r in frontier_rows.items()})
 
@@ -371,7 +438,7 @@ def run(cfg: dict, device: str):
         dist_rows[metric] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                  bound_ms=bms, bound_by=by, max_abs_err=err)
     emit("kernel_distance", shapes=dict(nq=nq, ne=ne, d=dim), results=dist_rows)
-    del pages, iv, lv, filt, args, q, e
+    del filt, args, fids, queries, q, e
 
     # ---------------------------------------------------------------- 4-5
     # the main path: launch counts are zeroed here and read after phase 5
@@ -411,6 +478,11 @@ def run(cfg: dict, device: str):
         res, s = wall(lambda: eng.knn(Qa, k=K, max_frontier=BENCH_F))
         times.append(s * 1e3)
     bench_times = times
+    # the cohort's frontiers as the descent passes them to the scorer,
+    # recorded through the plain scorer (no launch) for phase 5b
+    index_calls, index_pages = {}, {}
+    eng.knn(Qa, k=K, max_frontier=BENCH_F,
+            _scorer=recorder(index_calls.setdefault("bench", []), index_pages))
     emit("knn_bench_geometry", b=cfg["b_bench"], k=K, max_frontier=BENCH_F,
          parent_prune=True, ms_per_cohort=times, launches_per_call=knn_launches,
          dist_evals_per_query=float(res.dist_evals.float().mean()),
@@ -428,6 +500,8 @@ def run(cfg: dict, device: str):
     F_exact = Fx
     times = [wall(lambda: eng.knn(Qb, k=K, max_frontier=F_exact))[1] * 1e3
              for _ in range(cfg["timing_reps"])]
+    eng.knn(Qb, k=K, max_frontier=F_exact,
+            _scorer=recorder(index_calls.setdefault("exact", []), index_pages))
     (scan_d, scan_i), scan_launches = per_call(
         lambda: brute_force_knn(Xd, Qb, k=K + 1, metric="d_inf",
                                 device=device))
@@ -576,6 +650,14 @@ def run(cfg: dict, device: str):
     if on_card:
         for name, c in launches.items():
             check(c > 0, f"kernel {name} never launched on the main path")
+
+    # ---------------------------------------------------------------- 5b
+    replay = frontier_replay(index_calls, index_pages, on_card)
+    emit("frontier_replay_index", n=n, dim=dim, metric="d_inf", k=K,
+         geometries={"bench": dict(b=cfg["b_bench"], max_frontier=BENCH_F),
+                     "exact": dict(b=cfg["b_exact"], max_frontier=F_exact)},
+         results=replay)
+    del index_calls, index_pages, replay
 
     # ---------------------------------------------------------------- 6
     def parity(tree, Q, Fx, what):
@@ -934,22 +1016,6 @@ def run_lm(cfg: dict, device: str):
     # scorer (through the plain scorer: no launch), for phase 12
     captured, pages = {}, {}
 
-    def recorder(calls):
-        def scorer(fids, queries, vecs, radius, iv, lv, *, metric, pdist=None, qpd=None,
-                   rq=None):
-            if not pages:
-                pages.update(vecs=vecs.clone(), radius=radius.clone(), iv=iv.clone(),
-                             lv=lv.clone())
-            if pdist is not None and "pdist" not in pages:
-                pages["pdist"] = pdist.clone()
-            clone = lambda t: None if t is None else t.clone()
-            calls.append(dict(fids=fids.clone(), queries=queries.clone(), metric=metric,
-                              pdist=None if pdist is None else pages["pdist"],
-                              qpd=clone(qpd), rq=clone(rq)))
-            return frontier_scores_torch(fids, queries, vecs, radius, iv, lv, metric=metric,
-                                         pdist=pdist, qpd=qpd, rq=rq)
-        return scorer
-
     def retrieval(tag, capture=False):
         out = {}
         for rb in cfg["ret_bs"]:
@@ -957,7 +1023,7 @@ def run_lm(cfg: dict, device: str):
             c0 = counts()
             res = store.retrieve(q)
             launches = delta(c0)
-            ref = store.retrieve(q, _scorer=(recorder(captured.setdefault(rb, []))
+            ref = store.retrieve(q, _scorer=(recorder(captured.setdefault(f"b{rb}", []), pages)
                                              if capture else frontier_scores_torch))
             for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
                 check(torch.equal(getattr(res, f), getattr(ref, f)),

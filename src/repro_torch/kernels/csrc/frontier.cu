@@ -17,15 +17,59 @@
 // Two variants, chosen by the launcher from the row width:
 //
 // * narrow rows (dim <= kNarrowMaxDim = 128, the SM-tree's own objects).
-//   What bounds it: bytes.  The four [b, F, cap] f32 outputs are written in
-//   full whatever the data (8.4 MB each at b=1024, F=64, cap=32), while the
-//   metric costs about 3 flops per dimension per live entry.  Design: one
-//   warp per (i, j) pair, the block's warps on consecutive pairs so output
-//   rows are written as whole coalesced lines.  Each lane owns one or two
-//   entries (cap <= 64).  The page is staged in shared memory with
-//   coalesced loads of the live rows only (a ballot of the keep mask tells
-//   the warp which), rows padded to an odd stride so the per-lane metric
-//   walks hit distinct banks.
+//   What bounds it: bytes, and the latency of the chain that reaches them.
+//   The four [b, F, cap] f32 outputs are written in full whatever the data
+//   (8.4 MB each at b=1024, F=64, cap=32), the live rows are read (80 B
+//   each at dim 20), and the metric costs about 3 flops per dimension per
+//   live entry.  But each pair is a chain of dependent loads (its node id,
+//   then the page's radius/validity/pdist rows, then the live page rows),
+//   and on the descent's own frontiers most pairs are empty slots or
+//   pruned pages while a few carry many live entries, bunched at the head
+//   of each query's frontier.  Design (PERF.md has the variants measured
+//   on the way):
+//
+//   - Persistent warps, balanced.  The grid is as many blocks of
+//     kNarrowWarps warps as the SMs hold at once (registers, threads,
+//     shared memory), and no more than the pairs need.  Warp x of T takes
+//     pairs x, x + T, x + 2T, ...: a contiguous range per warp left the
+//     warps that drew a query's head with all its live pairs (2x slower on
+//     the exact geometry's levels), and runs of 4 to 16 consecutive pairs
+//     were slower than single pairs.
+//   - Per-pair scalars a chunk at a time.  For 32 pairs at once each lane
+//     loads one pair's node id, query row, qpd and rq; a pair's scalars
+//     come by __shfl_sync, so only one pair in 32 waits for its node id.
+//   - The keep step runs ahead of the score step.  It reads pair kp's
+//     radius, validity (and pdist) rows from device memory, a lane an
+//     entry, and computes its keep mask; a pair with no live entry (empty slot, pruned page) gets
+//     its +inf rows at once, costs no copy and takes no stage; a live
+//     pair's rows go to the next of kNarrowStages page stages, and the
+//     keep step goes on until that many live pairs are in flight.  The
+//     score step waits for the oldest stage's mbarrier, scores it and
+//     frees it.  Copying the metadata rows ahead into shared memory by
+//     cp.async (1 or 4 pairs ahead, validity rows as 4-byte words) was
+//     measured and left out: no faster on the descent's own frontiers.
+//   - The copies.  A stage holds the live rows of the page row-major at a
+//     row stride that is a multiple of 4 floats with an odd quarter, and
+//     the query row after it.  The warp lists the live rows (filtered or
+//     not) and copies them with cp.async, the lanes on consecutive units of
+//     the listed rows, a lane's (row, unit) stepped by (32 / units,
+//     32 % units): no division per copy.  A unit is 16 bytes where the rows
+//     are 16-byte aligned (dim % 4 == 0, vecs and queries 16-byte aligned),
+//     else 4 bytes.  Each lane's arrival on the stage's mbarrier waits for
+//     its copies.
+//   - The metric.  Lane s scores entry s (and s + 32) from its staged row:
+//     16-byte loads, 8 lanes a phase on 8 distinct bank quads.  d_inf is a
+//     max in any order.  l1/l2 write their terms down the lane's column of
+//     a term buffer (pitch 33: conflict-free), then sum them in
+//     _sum_last's association with no stack: _sum_last over dim terms is
+//     a tree of L = floor(log2 dim) levels whose leaf x is the element
+//     sum of (dim >> (j + 1)) over the set bits j of x, then, innermost
+//     first, one tree of 2^lev leaves for each level lev whose length
+//     dim >> lev is odd (based at (dim >> lev) - 1).  fold_leaf lists the
+//     leaves in that order once a block; LeafTree<M> adds a tree's two
+//     halves, unrolled at compile time for each L (a switch).
+//     tests/test_torch_frontier_fold_narrow.py replays this order in
+//     PyTorch against _sum_last at every dim 1..128.
 //
 // * wide rows (dim > 128: kNN-LM keys are hidden states, 2048 wide for
 //   qwen2.5-3b).  A page of 32 such rows is 256 KB, more than a block's
@@ -85,7 +129,7 @@
 //   a block.
 //
 // No scalar prefetch and nothing carried between blocks in either: a warp
-// or block reads its own node id.
+// or block reads its own node ids.
 //
 // Bitwise contract with the plain PyTorch version (frontier_scores_torch)
 // and, through it, with the JAX package: every op rounds once
@@ -102,7 +146,12 @@ namespace {
 
 constexpr int kNarrowMaxDim = 128;
 constexpr int kMaxCap = 64;
-constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kNarrowWarps = 8;       // warps a narrow block holds, at most
+constexpr int kNarrowStages = 2;     // a narrow warp's page ring: pairs staged or in flight
+// pairs a narrow launch takes (32-bit indices; 2^30 pairs of outputs are
+// far beyond a card's memory)
+constexpr int kNarrowMaxPairs = 1 << 30;
+constexpr int kTermPitch = 33;       // a narrow warp's term buffer: lane l's column l
 constexpr int kWideWarps = 8;
 constexpr int kRun = 8;              // pairs a wide block takes (G)
 constexpr int kMaxRegLevels = 4;     // fold levels a lane keeps in registers
@@ -116,6 +165,10 @@ constexpr int kMinBlocks = 2;        // wide blocks an SM must hold (registers)
 constexpr int kWideStaticSmem = kRun * (8 + 4 + 1 + 8 + 4 + kMaxCap * 9) + 256;
 constexpr float kPrunePad = 2e-5f;   // kernels/frontier.py:_PRUNE_PAD
 constexpr unsigned kFull = 0xffffffffu;
+
+// floats of a narrow warp's l1/l2 term buffer (dim rows of kTermPitch),
+// rounded up so that the next warp's stages stay 16-byte aligned
+__host__ __device__ constexpr int term_len(int dim) { return (dim * kTermPitch + 3) & ~3; }
 
 enum Metric { kDinf = 0, kL2 = 1, kL1 = 2 };
 
@@ -140,39 +193,227 @@ __device__ __forceinline__ float term(float q, float e) {
   return (METRIC == kL2) ? __fmul_rn(d, d) : fabsf(d);
 }
 
-// d(q, row), one lane alone.  ``row`` is the entry's staged page row; the
-// l1/l2 fold overwrites it in place.
+// the keep mask of an entry, before any metric work: valid, and with
+// PRUNE |qpd - pdist| <= (rq + r) + pad, in the reference's order
+template <bool PRUNE>
+__device__ __forceinline__ bool keep_entry(bool ok, float qp, float rqi, float r,
+                                           float pd) {
+  if (!PRUNE) return ok;
+  const float lb = fabsf(__fsub_rn(qp, pd));
+  return ok && (lb <= __fadd_rn(__fadd_rn(rqi, r), kPrunePad));
+}
+
+// ---------------------------------------------------------------- narrow rows
+
+// Leaf x of _sum_last's tree sequence over ``dim`` terms (header, "The
+// fold"): the main tree's 2^L leaves, then each odd level's tail tree,
+// innermost first.  Leaf x of a tree over levels < lev is the element
+// base + sum of (dim >> (j + 1)) over the set bits j of x.
+__device__ __forceinline__ int fold_leaf(int x, int dim) {
+  const int L = 31 - __clz(dim);
+  int lev = L, base = 0;
+  if (x >= (1 << L)) {
+    x -= 1 << L;
+    for (lev = L - 1; lev >= 0; --lev) {
+      if (!((dim >> lev) & 1)) continue;
+      if (x < (1 << lev)) break;
+      x -= 1 << lev;
+    }
+    base = (dim >> lev) - 1;
+  }
+  int idx = base;
+  for (int j = 0; j < lev; ++j)
+    if ((x >> j) & 1) idx += dim >> (j + 1);
+  return idx;
+}
+
+// The tree over leaves x .. x + 2^M - 1 of the sequence: its two halves,
+// each a tree, added.  Leaf x is the term at col[leaf_off[x]].
+template <int M>
+struct LeafTree {
+  static __device__ __forceinline__ float sum(const float* col, const int* leaf_off, int x) {
+    return __fadd_rn(LeafTree<M - 1>::sum(col, leaf_off, x),
+                     LeafTree<M - 1>::sum(col, leaf_off, x + (1 << (M - 1))));
+  }
+};
+template <>
+struct LeafTree<0> {
+  static __device__ __forceinline__ float sum(const float* col, const int* leaf_off, int x) {
+    return col[leaf_off[x]];
+  }
+};
+
+// _sum_last's tails from level LEV down: where dim >> lev is odd, the tree
+// of the next 2^lev leaves, added to the running sum innermost first.
+template <int LEV>
+__device__ __forceinline__ float add_tail_trees(const float* col, const int* leaf_off, int dim,
+                                                int x, float s) {
+  if ((dim >> LEV) & 1) {
+    s = __fadd_rn(s, LeafTree<LEV>::sum(col, leaf_off, x));
+    x += 1 << LEV;
+  }
+  return add_tail_trees<LEV - 1>(col, leaf_off, dim, x, s);
+}
+template <>
+__device__ __forceinline__ float add_tail_trees<-1>(const float*, const int*, int, int,
+                                                    float s) {
+  return s;
+}
+
+// _sum_last of a lane's terms (term t at col[t * kTermPitch]) for a dim
+// with floor(log2 dim) == L; ``leaf_off[x]`` = fold_leaf(x) * kTermPitch.
+template <int L>
+__device__ __forceinline__ float fold_terms(const float* col, const int* leaf_off, int dim) {
+  return add_tail_trees<L - 1>(col, leaf_off, dim, 1 << L, LeafTree<L>::sum(col, leaf_off, 0));
+}
+
+// d(q, entry): ``row`` is the entry's staged row, ``q`` the query's (both
+// 16-byte aligned); l1/l2 write their terms down the lane's column
+// ``col`` of its warp's term buffer, then fold them.
 template <int METRIC>
-__device__ float metric_row(const float* __restrict__ q, float* row, int dim) {
+__device__ __forceinline__ float metric_narrow(const float* row, const float* q, float* col,
+                                               const int* leaf_off, int dim) {
+  const int nv = dim >> 2;
   if constexpr (METRIC == kDinf) {
     float m = 0.f;
-    for (int t = 0; t < dim; ++t) m = fmaxf(m, fabsf(__fsub_rn(q[t], row[t])));
+    for (int c = 0; c < nv; ++c) {
+      const float4 e = *reinterpret_cast<const float4*>(row + 4 * c);
+      const float4 x = *reinterpret_cast<const float4*>(q + 4 * c);
+      m = fmaxf(m, fabsf(__fsub_rn(x.x, e.x)));
+      m = fmaxf(m, fabsf(__fsub_rn(x.y, e.y)));
+      m = fmaxf(m, fabsf(__fsub_rn(x.z, e.z)));
+      m = fmaxf(m, fabsf(__fsub_rn(x.w, e.w)));
+    }
+    for (int t = 4 * nv; t < dim; ++t) m = fmaxf(m, fabsf(__fsub_rn(q[t], row[t])));
     return m;
   } else {
-    for (int t = 0; t < dim; ++t) row[t] = term<METRIC>(q[t], row[t]);
-    // _sum_last: at each level add the halves pairwise, carrying an odd tail
-    for (int n = dim; n > 1; n >>= 1) {
-      const int h = n >> 1;
-      for (int i = 0; i < h; ++i) row[i] = __fadd_rn(row[i], row[i + h]);
+    for (int c = 0; c < nv; ++c) {
+      const float4 e = *reinterpret_cast<const float4*>(row + 4 * c);
+      const float4 x = *reinterpret_cast<const float4*>(q + 4 * c);
+      float* o = col + 4 * c * kTermPitch;
+      o[0] = term<METRIC>(x.x, e.x);
+      o[kTermPitch] = term<METRIC>(x.y, e.y);
+      o[2 * kTermPitch] = term<METRIC>(x.z, e.z);
+      o[3 * kTermPitch] = term<METRIC>(x.w, e.w);
     }
-    const float s = add_tails(row[0], row, dim);
+    for (int t = 4 * nv; t < dim; ++t) col[t * kTermPitch] = term<METRIC>(q[t], row[t]);
+    float s;
+    switch (31 - __clz(dim)) {
+      case 0: s = fold_terms<0>(col, leaf_off, dim); break;
+      case 1: s = fold_terms<1>(col, leaf_off, dim); break;
+      case 2: s = fold_terms<2>(col, leaf_off, dim); break;
+      case 3: s = fold_terms<3>(col, leaf_off, dim); break;
+      case 4: s = fold_terms<4>(col, leaf_off, dim); break;
+      case 5: s = fold_terms<5>(col, leaf_off, dim); break;
+      case 6: s = fold_terms<6>(col, leaf_off, dim); break;
+      default: s = fold_terms<7>(col, leaf_off, dim); break;
+    }
     return (METRIC == kL2) ? __fsqrt_rn(s) : s;
   }
 }
 
-// the keep mask of entry e, before any metric work: valid, and with
-// PRUNE |qpd - pdist| <= (rq + r) + pad, in the reference's order
-template <bool PRUNE>
-__device__ __forceinline__ bool keep_entry(bool ok, float qp, float rqi,
-                                           float r, const float* pdist,
-                                           long long e) {
-  if (!PRUNE) return ok;
-  const float lb = fabsf(__fsub_rn(qp, pdist[e]));
-  return ok && (lb <= __fadd_rn(__fadd_rn(rqi, r), kPrunePad));
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// one float by cp.async
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// four floats by cp.async, cached in L2 only
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// the barrier counts this lane's arrival once all its cp.async copies so
+// far have landed
+__device__ __forceinline__ void bar_arrive_copies(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-template <int METRIC, bool PRUNE>
-__global__ void frontier_kernel(
+// The per-pair scalars of 32 consecutive pairs of a warp, one a lane:
+// node id, query row, and with PRUNE qpd and rq of that row.
+struct Chunk {
+  int fid, i;
+  float qp, rqi;
+};
+
+// What a narrow launch tells its warps about the staging (header above).
+struct NarrowStage {
+  int stride;      // floats between staged rows: a multiple of 4, stride / 4 odd
+  int len;         // floats of one stage: rows 0 .. cap - 1 the page, row cap the query
+  int unit;        // floats a row copy moves at a time: 4 (16-byte cp.async), else 1
+};
+
+// floats of a narrow warp's shared memory: the page stages, the staged
+// pairs' radii (kNarrowStages x cap) and, for l1/l2, the term buffer; a
+// multiple of 4, so every warp's stages stay 16-byte aligned
+template <int METRIC>
+__host__ __device__ inline int narrow_warp_floats(const NarrowStage& sg, int cap, int dim) {
+  return kNarrowStages * (sg.len + ((cap + 3) & ~3)) + (METRIC == kDinf ? 0 : term_len(dim));
+}
+
+// A lane's walk over the (live row, unit) copies of a pair: it starts at
+// (k0, c0) = (lane / C, lane % C) of C units a row and steps by
+// (32 / C, 32 % C): no division per copy.
+struct CopyWalk { int k0, c0, dk, dc, units; };
+
+// Stage a kept pair's live rows and its query row into ``stg``; the
+// stage's barrier (32 arrivals) completes when they have landed.  The warp
+// lists the live rows (``rows``, its own list in shared memory) and copies
+// them unit by unit with cp.async, 16 or 4 bytes at a time, the 32 lanes on
+// consecutive units, and each lane's arrival waits for its copies.
+template <int NU>
+__device__ __forceinline__ void stage_pair(float* stg, unsigned long long* bar,
+                                           unsigned char* rows, unsigned long long live,
+                                           const float* page, const float* q,
+                                           const NarrowStage& sg, const CopyWalk& cw, int cap,
+                                           int dim, int lane) {
+  float* qs = stg + cap * sg.stride;
+  __syncwarp();                                 // the last pair's list is read
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int s = lane + 32 * u;
+    if ((live >> s) & 1ull) rows[__popcll(live & ((1ull << s) - 1ull))] = (unsigned char)s;
+  }
+  __syncwarp();
+  const int n = __popcll(live) * cw.units;
+  for (int g = lane, k = cw.k0, c = cw.c0; g < n; g += 32) {
+    const int s = rows[k];
+    if (sg.unit == 4)
+      cp_async16(stg + s * sg.stride + 4 * c, page + s * dim + 4 * c);
+    else
+      cp_async4(stg + s * sg.stride + c, page + s * dim + c);
+    k += cw.dk;
+    c += cw.dc;
+    if (c >= cw.units) { c -= cw.units; ++k; }
+  }
+  for (int c = lane; c < cw.units; c += 32) {
+    if (sg.unit == 4)
+      cp_async16(qs + 4 * c, q + 4 * c);
+    else
+      cp_async4(qs + c, q + c);
+  }
+  bar_arrive_copies(bar);
+}
+
+// Narrow rows: persistent warps, each on every T-th pair (header above).
+// The keep step runs ahead of the score step: it keeps pair kp, writes a
+// pair with no live entry at once, and hands a live pair's row copies to
+// the next free stage, until kNarrowStages live pairs are in flight.  NU:
+// entries a lane (cap <= 32 * NU).
+template <int METRIC, bool PRUNE, int NU>
+__global__ void __launch_bounds__(32 * kNarrowWarps) frontier_narrow_kernel(
     const int* __restrict__ fids, const float* __restrict__ queries,
     const float* __restrict__ vecs, const float* __restrict__ radius,
     const unsigned char* __restrict__ ival,
@@ -181,64 +422,136 @@ __global__ void frontier_kernel(
     const float* __restrict__ rq,
     float* __restrict__ dmax, float* __restrict__ score,
     float* __restrict__ leafd, float* __restrict__ dq,
-    long long pairs, int w, int n_nodes, int cap, int dim, int stride) {
-  extern __shared__ float smem[];
+    int pairs, int w, int n_nodes, int cap, int dim, NarrowStage sg) {
+  constexpr int S = kNarrowStages;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int leaf_off[kNarrowMaxDim];
+  __shared__ unsigned long long bars[kNarrowWarps][S];
+  __shared__ unsigned char live_rows[kNarrowWarps][kMaxCap];
+  __shared__ unsigned char slot_f[kNarrowWarps][S][kMaxCap];   // a staged pair's flags
+  __shared__ int slot_pair[kNarrowWarps][S];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long pair =
-      (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (pair >= pairs) return;              // the whole warp leaves together
-  const long long i = pair / w;
-  float* qs = smem + warp * (dim + cap * stride);
-  float* page = qs + dim;
+  if (METRIC != kDinf)
+    for (int x = threadIdx.x; x < dim; x += blockDim.x)
+      leaf_off[x] = fold_leaf(x, dim) * kTermPitch;
+  if (lane < S)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;\n" ::"r"(smem_addr(&bars[warp][lane]))
+                 : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
 
-  const int fid = fids[pair];
-  const bool ok = fid >= 0;
-  const long long node = min(max(fid, 0), n_nodes - 1);
-  const float qp = PRUNE ? qpd[pair] : 0.f;
-  const float rqi = PRUNE ? rq[i] : 0.f;
-
-  bool iv[2], lv[2];
-  float r[2];
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int s = lane + 32 * u;
-    iv[u] = lv[u] = false;
-    r[u] = 0.f;
-    if (s < cap) {
-      const long long e = node * cap + s;
-      r[u] = radius[e];
-      const bool keep = keep_entry<PRUNE>(ok, qp, rqi, r[u], pdist, e);
-      iv[u] = keep && ival[e] != 0;
-      lv[u] = keep && lval[e] != 0;
-    }
-  }
-  const unsigned live0 = __ballot_sync(kFull, iv[0] || lv[0]);
-  const unsigned live1 = __ballot_sync(kFull, iv[1] || lv[1]);
-  const long long o = pair * cap;
+  // warp x of T takes pairs x, x + T, x + 2T, ...: its t-th pair is
+  // x + t * T, so the heavy stretches of a frontier (a query's first slots,
+  // before its empty ones) spread over all warps
+  const int T = gridDim.x * (blockDim.x >> 5);
+  const int x = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (x >= pairs) return;                       // the whole warp leaves together
+  const int end = (pairs - 1 - x) / T + 1;      // this warp's pairs
+  auto pair_of = [&](int t) { return x + t * T; };
+  // this warp's shared memory (narrow_warp_floats): S page stages, the
+  // staged pairs' radii, the term buffer
+  float* ring = smem + (size_t)warp * narrow_warp_floats<METRIC>(sg, cap, dim);
+  float* slot_r = ring + S * sg.len;
+  float* col = slot_r + S * cap + lane;         // this lane's term column
+  const int units = dim / sg.unit;
+  const CopyWalk cw{lane / units, lane % units, 32 / units, 32 % units, units};
   const float inf = CUDART_INF_F;
 
-  if ((live0 | live1) != 0u) {
-    // stage the query row and the live page rows (coalesced, live rows only)
-    for (int t = lane; t < dim; t += 32) qs[t] = queries[i * dim + t];
-    const float* pg = vecs + node * cap * dim;
-    for (int t = lane; t < cap * dim; t += 32) {
-      const int s = t / dim;
-      const unsigned bits = s < 32 ? live0 : live1;
-      if ((bits >> (s & 31)) & 1u) page[s * stride + (t - s * dim)] = pg[t];
+  // the scalars of chunk c (this warp's pairs 32c .. 32c + 31), one a lane
+  auto load_chunk = [&](int c) {
+    Chunk ch{-1, 0, 0.f, 0.f};
+    const int t = 32 * c + lane;
+    if (t < end) {
+      const int p = pair_of(t);
+      ch.fid = fids[p];
+      ch.i = p / w;
+      if (PRUNE) { ch.qp = qpd[p]; ch.rqi = rq[ch.i]; }
     }
-    __syncwarp();
-  }
+    return ch;
+  };
+  auto write_row = [&](long long o, int s, unsigned f, float d, float r) {
+    const bool iv = f & 1u, lv = f & 2u;
+    dmax[o + s] = iv ? __fadd_rn(d, r) : inf;
+    score[o + s] = iv ? __fsub_rn(d, r) : inf;
+    leafd[o + s] = lv ? d : inf;
+    dq[o + s] = iv ? d : inf;
+  };
+
+  Chunk ch = load_chunk(0);                     // the chunk that holds pair kp
+  unsigned parity = 0;                          // bit k: the phase stage k waits for
+  int kp = 0, head = 0, staged = 0;
+  while (true) {
+    // keep steps: until S live pairs are in flight or the range is kept
+    while (staged < S && kp < end) {
+      if (kp > 0 && (kp & 31) == 0) ch = load_chunk(kp >> 5);
+      const int fid = __shfl_sync(kFull, ch.fid, kp & 31);
+      const float qp = PRUNE ? __shfl_sync(kFull, ch.qp, kp & 31) : 0.f;
+      const float rqi = PRUNE ? __shfl_sync(kFull, ch.rqi, kp & 31) : 0.f;
+      const int node = min(fid, n_nodes - 1);
+      float r[NU];
+      unsigned f[NU];
+      unsigned long long live = 0;
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int s = lane + 32 * u;
-    if (s >= cap) continue;
-    float d = 0.f;
-    if (iv[u] || lv[u]) d = metric_row<METRIC>(qs, page + s * stride, dim);
-    dmax[o + s] = iv[u] ? __fadd_rn(d, r[u]) : inf;
-    score[o + s] = iv[u] ? __fsub_rn(d, r[u]) : inf;
-    leafd[o + s] = lv[u] ? d : inf;
-    dq[o + s] = iv[u] ? d : inf;
+      for (int u = 0; u < NU; ++u) {
+        const int s = lane + 32 * u;
+        bool keep = false, iv = false, lv = false;
+        r[u] = 0.f;
+        if (fid >= 0 && s < cap) {
+          const long long e = (long long)node * cap + s;
+          r[u] = radius[e];
+          keep = keep_entry<PRUNE>(true, qp, rqi, r[u], PRUNE ? pdist[e] : 0.f);
+          iv = ival[e] != 0;
+          lv = lval[e] != 0;
+        }
+        f[u] = (keep && iv) | ((keep && lv) << 1);
+        live |= (unsigned long long)__ballot_sync(kFull, f[u] != 0) << (32 * u);
+      }
+      if (live) {                               // to the next free stage
+        const int st = head + staged < S ? head + staged : head + staged - S;
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          const int s = lane + 32 * u;
+          if (s < cap) {
+            slot_r[st * cap + s] = r[u];
+            slot_f[warp][st][s] = (unsigned char)f[u];
+          }
+        }
+        if (lane == 0) slot_pair[warp][st] = pair_of(kp);
+        stage_pair<NU>(ring + st * sg.len, &bars[warp][st], live_rows[warp], live,
+                       vecs + (long long)node * cap * dim,
+                       queries + (long long)__shfl_sync(kFull, ch.i, kp & 31) * dim, sg, cw,
+                       cap, dim, lane);
+        ++staged;
+      } else {                                  // nothing to score: +inf rows now
+        const long long o = (long long)pair_of(kp) * cap;
+#pragma unroll
+        for (int u = 0; u < NU; ++u)
+          if (lane + 32 * u < cap) write_row(o, lane + 32 * u, 0u, 0.f, 0.f);
+      }
+      ++kp;
+    }
+    if (staged == 0) break;
+    // score step: the oldest staged pair, once its copies have landed
+    bar_wait(&bars[warp][head], (parity >> head) & 1u);
+    parity ^= 1u << head;
+    __syncwarp();
+    const float* stg = ring + head * sg.len;
+    const long long o = (long long)slot_pair[warp][head] * cap;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int s = lane + 32 * u;
+      if (s >= cap) continue;
+      const unsigned f = slot_f[warp][head][s];
+      float d = 0.f;
+      if (f != 0u)
+        d = metric_narrow<METRIC>(stg + s * sg.stride, stg + cap * sg.stride, col, leaf_off,
+                                  dim);
+      write_row(o, s, f, d, slot_r[head * cap + s]);
+    }
+    __syncwarp();                        // the stage is read before it is refilled
+    head = head + 1 < S ? head + 1 : 0;
+    --staged;
   }
 }
 
@@ -508,7 +821,7 @@ __global__ void __launch_bounds__(32 * kWideWarps, kMinBlocks) frontier_wide_ker
     for (int s = lane; s < cap; s += 32) {
       const long long e = node * cap + s;
       const float r = radius[e];
-      const bool keep = keep_entry<PRUNE>(fid >= 0, qp, rqi, r, pdist, e);
+      const bool keep = keep_entry<PRUNE>(fid >= 0, qp, rqi, r, PRUNE ? pdist[e] : 0.f);
       const bool iv = keep && ival[e] != 0;
       const bool lv = keep && lval[e] != 0;
       r_s[g][s] = r;
@@ -603,33 +916,93 @@ struct Args {
 struct KernelInfo { bool ok; int sms, sm_smem, regs; size_t static_smem, smem_cap; };
 constexpr int kMaxDevices = 64;
 
-// One cache for each instantiation: they all share one function type, so
-// the cache cannot be keyed on the kernel's type.
+// The device's limits and one kernel's attributes, with its dynamic shared
+// memory limit raised to what the device allows; ok is false on an error.
+KernelInfo read_kernel_info(const void* kern, int dev) {
+  KernelInfo k{};
+  cudaFuncAttributes at;
+  int optin = 48 * 1024;
+  k.sms = 132;
+  k.sm_smem = 228 * 1024;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&k.sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&k.sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (cudaFuncGetAttributes(&at, kern) != cudaSuccess) return k;
+  k.smem_cap = optin - at.sharedSizeBytes;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)k.smem_cap) != cudaSuccess)
+    return k;
+  k.regs = at.numRegs;
+  k.static_smem = at.sharedSizeBytes;
+  k.ok = true;
+  return k;
+}
+
+// One cache for each instantiation (read once for each device): they all
+// share one function type, so the cache cannot be keyed on the kernel's type.
 template <int METRIC, bool PRUNE, int V, int R>
 KernelInfo wide_kernel_info(int dev) {
   static std::mutex mu;
   static KernelInfo info[kMaxDevices];          // zero: not read yet
-  auto kern = frontier_wide_kernel<METRIC, PRUNE, V, R>;
   std::lock_guard<std::mutex> lock(mu);
-  KernelInfo& k = info[dev];
+  if (!info[dev].ok)
+    info[dev] = read_kernel_info((const void*)frontier_wide_kernel<METRIC, PRUNE, V, R>, dev);
+  return info[dev];
+}
+
+template <int METRIC, bool PRUNE, int NU>
+KernelInfo narrow_kernel_info(int dev) {
+  static std::mutex mu;
+  static KernelInfo info[kMaxDevices];
+  std::lock_guard<std::mutex> lock(mu);
+  if (!info[dev].ok)
+    info[dev] = read_kernel_info((const void*)frontier_narrow_kernel<METRIC, PRUNE, NU>, dev);
+  return info[dev];
+}
+
+// One narrow launch: blocks of up to kNarrowWarps warps, as many as fit on
+// an SM by registers, threads and shared memory (narrow_warp_floats a
+// warp), that many for every SM, and no more warps than pairs.
+template <int METRIC, bool PRUNE, int NU>
+int launch_narrow(const Args& a, cudaStream_t st) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const KernelInfo k = narrow_kernel_info<METRIC, PRUNE, NU>(dev);
   if (!k.ok) {
-    cudaFuncAttributes at;
-    int optin = 48 * 1024;
-    k.sms = 132;
-    k.sm_smem = 228 * 1024;
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaDeviceGetAttribute(&k.sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&k.sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    if (cudaFuncGetAttributes(&at, kern) != cudaSuccess) return k;
-    k.smem_cap = optin - at.sharedSizeBytes;
-    if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)k.smem_cap) != cudaSuccess)
-      return k;
-    k.regs = at.numRegs;
-    k.static_smem = at.sharedSizeBytes;
-    k.ok = true;
+    err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
   }
-  return k;
+  // rows at a multiple of 4 floats whose quarter is odd: a lane's 16-byte
+  // reads of its own row, 8 lanes a phase, hit 8 distinct bank quads
+  NarrowStage sg;
+  sg.stride = (a.dim + 3) & ~3;
+  if ((sg.stride >> 2) % 2 == 0) sg.stride += 4;
+  sg.len = (a.cap + 1) * sg.stride;
+  const bool aligned = a.dim % 4 == 0 &&
+      (((unsigned long long)a.vecs | (unsigned long long)a.queries) & 15ull) == 0;
+  sg.unit = aligned ? 4 : 1;
+  const size_t ring = sizeof(float) * narrow_warp_floats<METRIC>(sg, a.cap, a.dim);
+  int warps = kNarrowWarps;
+  while (warps > 1 && warps * ring > k.smem_cap) --warps;
+  if (ring > k.smem_cap) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * warps;
+  const int warp_regs = ((k.regs * 32 + 255) / 256) * 256;   // allocation unit
+  int per_sm = 65536 / (warp_regs * warps);
+  if (per_sm > 2048 / threads) per_sm = 2048 / threads;
+  const int by_smem = (int)(k.sm_smem / (warps * ring + k.static_smem + 1024));
+  if (per_sm > by_smem) per_sm = by_smem;
+  if (per_sm < 1) per_sm = 1;
+  if (a.pairs >= kNarrowMaxPairs) return (int)cudaErrorInvalidValue;
+  const int pairs = (int)a.pairs;
+  int blocks = k.sms * per_sm;
+  const int need = (pairs + warps - 1) / warps;
+  if (blocks > need) blocks = need;
+  frontier_narrow_kernel<METRIC, PRUNE, NU><<<blocks, threads, warps * ring, st>>>(
+      a.fids, a.queries, a.vecs, a.radius, a.ival, a.lval, a.pdist, a.qpd, a.rq,
+      a.dmax, a.score, a.leafd, a.dq, pairs, a.w, a.n_nodes, a.cap, a.dim, sg);
+  return (int)cudaGetLastError();
 }
 
 // One wide launch.  The run G is the largest (at most kRun) that lets as
@@ -698,18 +1071,9 @@ int launch_wide_levels(const Args& a, int R, cudaStream_t st) {
 
 template <int METRIC, bool PRUNE>
 int launch(const Args& a, cudaStream_t st) {
-  if (a.dim <= kNarrowMaxDim) {
-    const int stride = (a.dim % 2 == 0) ? a.dim + 1 : a.dim;   // odd: no bank clash
-    const size_t per_warp = sizeof(float) * (size_t)(a.dim + a.cap * stride);
-    int wpb = (int)((48 * 1024) / per_warp);
-    wpb = wpb < 1 ? 1 : (wpb > kMaxWarpsPerBlock ? kMaxWarpsPerBlock : wpb);
-    const dim3 grid((unsigned)((a.pairs + wpb - 1) / wpb));
-    frontier_kernel<METRIC, PRUNE><<<grid, 32 * wpb, per_warp * wpb, st>>>(
-        a.fids, a.queries, a.vecs, a.radius, a.ival, a.lval, a.pdist, a.qpd,
-        a.rq, a.dmax, a.score, a.leafd, a.dq, a.pairs, a.w, a.n_nodes, a.cap,
-        a.dim, stride);
-    return (int)cudaGetLastError();
-  }
+  if (a.dim <= kNarrowMaxDim)
+    return a.cap <= 32 ? launch_narrow<METRIC, PRUNE, 1>(a, st)
+                       : launch_narrow<METRIC, PRUNE, 2>(a, st);
   if constexpr (METRIC == kDinf) {
     const bool aligned = a.dim % 4 == 0 &&
         (((unsigned long long)a.vecs | (unsigned long long)a.queries) & 15ull) == 0;

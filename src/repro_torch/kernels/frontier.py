@@ -21,9 +21,12 @@ Two implementations of one function:
     ``[b, F, cap, dim]`` gather, then the shared metric);
   * the CUDA kernel ``csrc/frontier.cu`` (replaces ``_frontier_kernel`` and
     ``_frontier_kernel_pruned``), bitwise equal to the plain version.  It
-    has a variant for narrow rows (``dim <= 128``: a warp per frontier
-    slot, the page staged in shared memory) and one for wide rows; the
-    launcher picks one from ``dim``.  ``cap`` is at most 64 in both.  The
+    has a variant for narrow rows (``dim <= 128``: persistent warps, each
+    on every T-th frontier slot; node metadata copied ahead into a ring in
+    shared memory, slots with no live entry written at once, live slots'
+    rows copied into a ring of page stages while an earlier one is scored,
+    and the l1/l2 fold in registers) and one for wide rows; the launcher
+    picks one from ``dim``.  ``cap`` is at most 64 in both.  The
     wide variant reads entry rows straight from device memory with 16-byte
     loads and folds l1/l2 in registers (each lane's slots in ``_sum_last``'s
     order, then shuffles; a warp buffer in shared memory only for dims

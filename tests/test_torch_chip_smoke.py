@@ -37,7 +37,7 @@ KEYS = {"name", "route", "source", "replaces", "launches", "launches_per_pass",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
 
-def _rehearse(call: str):
+def _rehearse(call: str, keep: str | None = None):
     code = textwrap.dedent(f"""
         import json, sys
         sys.modules["jax"] = None
@@ -50,17 +50,31 @@ def _rehearse(call: str):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    phases = [json.loads(ln)["phase"] for ln in proc.stdout.splitlines()
-              if ln.startswith("{")]
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
     rows = json.loads(proc.stdout.split("RESULT ", 1)[1])
-    return phases, rows
+    if keep is not None:
+        return [ln["phase"] for ln in lines], rows, next(ln for ln in lines
+                                                        if ln["phase"] == keep)
+    return [ln["phase"] for ln in lines], rows
 
 
 def test_index_slice_rehearses_on_the_cpu():
-    phases, rows = _rehearse(f"run({TINY!r}, 'cpu')")
+    phases, rows, replay = _rehearse(f"run({TINY!r}, 'cpu')", keep="frontier_replay_index")
     assert phases == ["kernel_frontier", "kernel_distance", "build_tree",
                       "knn_bench_geometry", "knn_exact_geometry", "range_search",
-                      "insert_delete", "descent_kernel_vs_plain"]
+                      "insert_delete", "frontier_replay_index", "descent_kernel_vs_plain"]
+    # one cohort's frontiers at each geometry, replayed level by level: the
+    # root level unfiltered, then every internal level and the leaf chunks
+    res = replay["results"]
+    assert set(res) == {"bench", "exact"}
+    for geo, b in (("bench", TINY["b_bench"]), ("exact", TINY["b_exact"])):
+        levels = res[geo]["levels"]
+        assert len(levels) >= 3 and levels[0]["w"] == 1 and not levels[0]["prune"]
+        assert all(lv["prune"] for lv in levels[1:])
+        assert all(lv["pairs"] == b * lv["w"] and lv["bound_ms"] > 0 for lv in levels)
+        total = res[geo]["per_descent"]
+        assert total["pairs"] == sum(lv["pairs"] for lv in levels)
+        assert total["live_evals"] == sum(lv["live_evals"] for lv in levels) > 0
     assert [r["name"] for r in rows] == ["frontier_scores", "frontier_scores[parent_prune]",
                                          "pairwise_distance"]
     for r in rows:
@@ -81,3 +95,30 @@ def test_lm_slice_rehearses_on_the_cpu():
         extra = {"f32_cuda_core_bound_ms"} if r["name"] == "flash_attention_fwd" else set()
         assert set(r) == KEYS | extra and r["route"] == "cuda"
         assert (ROOT / r["source"]).exists()
+
+
+def test_ptxas_summary_groups_instantiations_and_counts_spills():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    entry = ("_ZN44_GLOBAL__N__53518cb6_11_frontier_cu_d44215d6{}ILi{}ELb0ELi1EEEvPKiPKf")
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{entry.format('22frontier_narrow_kernel', 0)}' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 4816 bytes smem",
+        f"ptxas info    : Compiling entry function '{entry.format('22frontier_narrow_kernel', 1)}' "
+        "for 'sm_90a'",
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 4816 bytes smem",
+        f"ptxas info    : Compiling entry function '{entry.format('20frontier_wide_kernel', 2)}' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers, 4816 bytes smem",
+    ])
+    assert chip_smoke.ptxas_summary(log) == {
+        "frontier_narrow_kernel": {"instances": 2, "registers": [64, 128], "spill_bytes": 28,
+                                   "spilling": ["<1,0,1>"]},
+        "frontier_wide_kernel": {"instances": 1, "registers": [72, 72], "spill_bytes": 0,
+                                 "spilling": []}}

@@ -1,6 +1,7 @@
 """``tools/frontier_turns.py`` on the CPU: the node sort puts every output
 back where the launch had it, and builds are timed in turns."""
 import importlib.util
+import json
 import sys
 from pathlib import Path
 
@@ -48,3 +49,26 @@ def test_builds_are_timed_in_turns():
     tool = _tool()
     turns = tool.Turns({"old": None, "seg": None, "new": None}, [])
     assert turns.order == ["old", "seg", "new", "new", "seg", "old"]
+
+
+def test_narrow_rows_cover_both_filters_and_the_root(capsys):
+    """The narrow rows at a tiny cut of chip_smoke's synthetic geometry:
+    every metric with the filter off and on, then level 0's shape (every
+    pair on one node), each handed to the turns with its own label."""
+    tool = _tool()
+    seen = []
+
+    def turns(args, kw, what):
+        seen.append(what)
+        return {"device_ms_new": 0.0}, frontier_scores_torch(*args, **kw)
+
+    cfg = dict(kernel_N=40, capacity=8, dims=5, kernel_b=6, kernel_F=4)
+    tool.narrow(turns, cfg, "cpu")
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [(r["geo"], r["metric"], r["prune"]) for r in rows] == [
+        ("synthetic", m, p) for m in ("d_inf", "l2", "l1") for p in (False, True)] + [
+        ("root", m, False) for m in ("d_inf", "l2", "l1")]
+    assert len(seen) == len(set(seen)) == 9
+    assert all(r["pairs"] == (24 if r["geo"] == "synthetic" else 6) for r in rows)
+    assert all(r["bound_ms"] > 0 and r["live_evals"] > 0 and "device_ms_new" in r
+               for r in rows)

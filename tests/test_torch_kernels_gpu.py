@@ -49,12 +49,17 @@ def _pages(rng, dev, N, cap, dim):
     return t(vecs), t(radius), t(valid & ~is_leaf[:, None]), t(valid & is_leaf[:, None])
 
 
+# narrow rows (dim <= 128): every dim whose fold takes another branch, at
+# caps of one and two entries a lane (cap * dim % 4 != 0 among them)
+NARROW_DIMS = (1, 2, 3, 20, 31, 32, 33, 64, 127, 128)
+NARROW_CAPS = (1, 7, 32, 33, 64)
+
+
 @pytest.mark.parametrize("prune", [False, True])
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("cap,dim", [(8, 5), (32, 20), (40, 33), (64, 128),
-                                     (32, 2048), (16, 1023), (32, 896),
-                                     (64, 129), (32, 384), (16, 3072),
-                                     (16, 4096)])
+@pytest.mark.parametrize("cap,dim", [(8, 5), (40, 33), (32, 2048), (16, 1023), (32, 896),
+                                     (64, 129), (32, 384), (16, 3072), (16, 4096)]
+                         + [(c, d) for c in NARROW_CAPS for d in NARROW_DIMS])
 def test_frontier_kernel_bitwise(cuda, metric, prune, cap, dim):
     rng = np.random.default_rng(cap * 1000 + dim)
     N, b, w = 37, 9, 6
@@ -77,6 +82,67 @@ def test_frontier_kernel_bitwise(cuda, metric, prune, cap, dim):
     torch.cuda.synchronize()
     for g, wv, name in zip(got, want, ("dmax", "score", "leaf_d", "dq")):
         assert torch.equal(g, wv), f"{metric}/{name}"
+
+
+def _narrow_case(rng, dev, N, cap, dim, b, w, *, vecs=None):
+    """Pages, queries and filter inputs around d_inf's scale at dim ``dim``
+    (the filter keeps some entries and drops others)."""
+    pv, radius, iv, lv = _pages(rng, dev, N, cap, dim)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    filt = dict(pdist=t(np.abs(1 + 0.5 * rng.normal(size=(N, cap))) * 2),
+                qpd=t(np.abs(1 + 0.5 * rng.normal(size=(b, w))) * 2),
+                rq=t(rng.uniform(0.1, 1.0, b)))
+    return (vecs if vecs is not None else pv), radius, iv, lv, t(rng.normal(size=(b, dim))), filt
+
+
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("cap,dim", [(32, 20), (7, 3), (33, 64)])
+def test_frontier_narrow_unaligned_pages(cuda, metric, prune, cap, dim):
+    """Pages and queries that start 4 bytes past a 16-byte boundary, and
+    validity rows that start 1 byte past a 4-byte one."""
+    rng = np.random.default_rng(cap + dim)
+    N, b, w = 23, 17, 9
+    flat = torch.from_numpy(rng.normal(size=N * cap * dim + 1).astype(np.float32)).to(cuda)
+    vecs = flat[1:].view(N, cap, dim)
+    vecs, radius, iv, lv, _, filt = _narrow_case(rng, cuda, N, cap, dim, b, w, vecs=vecs)
+    shifted = lambda m: torch.cat([m.new_zeros(1), m.reshape(-1)])[1:].view(N, cap)
+    iv, lv = shifted(iv), shifted(lv)
+    qflat = torch.from_numpy(rng.normal(size=b * dim + 1).astype(np.float32)).to(cuda)
+    queries = qflat[1:].view(b, dim)
+    assert vecs.data_ptr() % 16 == 4 and queries.data_ptr() % 16 == 4
+    assert iv.data_ptr() % 4 == 1 and lv.data_ptr() % 4 == 1
+    fids = torch.from_numpy(rng.integers(-1, N, (b, w)).astype(np.int32)).to(cuda)
+    _wide_launch_matches_plain(fids, queries, vecs, radius, iv, lv, metric,
+                               filt if prune else {})
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("case", ["root", "empty", "pruned", "waves"])
+def test_frontier_narrow_path_shapes(cuda, metric, case):
+    """The path's extremes at dim 20, cap 32: every pair on one node (the
+    root level, b=1024, unfiltered and filtered), every slot empty, every
+    page pruned, and more pairs than one wave of persistent warps holds
+    (b=4096, F=64: several ranges a warp)."""
+    rng = np.random.default_rng(len(case))
+    N, cap, dim = 300, 32, 20
+    b, w = {"root": (1024, 1), "empty": (64, 16), "pruned": (64, 16), "waves": (4096, 64)}[case]
+    vecs, radius, iv, lv, queries, filt = _narrow_case(rng, cuda, N, cap, dim, b, w)
+    fids = torch.from_numpy(rng.integers(0, N, (b, w)).astype(np.int32)).to(cuda)
+    if case == "root":
+        fids.zero_()
+    if case == "empty":
+        fids.fill_(-1)
+    if case == "pruned":
+        filt["rq"].zero_()
+        filt["qpd"].fill_(1e6)
+    for f in ({}, filt):
+        want = _wide_launch_matches_plain(fids, queries, vecs, radius, iv, lv, metric, f)
+        live = torch.isfinite(want[0]) | torch.isfinite(want[2])
+        if case == "empty" or (case == "pruned" and f):
+            assert not bool(live.any())
+        else:
+            assert bool(live.any())
 
 
 def _wide_launch_matches_plain(fids, queries, vecs, radius, iv, lv, metric, filt):

@@ -10,12 +10,18 @@ revision of the source with the same C interface (for example one taken with
 directory git ignores), built with the port's own nvcc flags.  Needs one
 CUDA card, like ``chip_smoke.py``, whose helpers it uses.
 
-  1. The wide kernel at ``chip_smoke.py``'s synthetic geometry (b=64,
+  1. The narrow kernel at ``chip_smoke.py``'s synthetic geometry (phase 3:
+     b=1024, F=64, cap=32, dim 20, 50,000 random nodes) for d_inf, l2 and
+     l1, filter off and on, and at level 0's shape (b=1024 pairs on one
+     node).
+  2. The wide kernel at ``chip_smoke.py``'s synthetic geometry (b=64,
      F=128, cap=32, 4,096 random nodes) at each of ``DIMS`` for l2 (and
      d_inf at dims 2048 and 896), filter off and on, and at level 0's
      shape (b=64 pairs on one node).
-  2. ``chip_smoke.main()`` in full, with its phase 12 (``frontier_replay``)
-     also timing every replayed level with each build.
+  3. ``chip_smoke.main()`` in full, with its replays (phase 5b,
+     ``frontier_replay_index``: one index cohort at the bench and the exact
+     geometry; phase 12, ``frontier_replay``: one datastore retrieval at
+     b=4 and b=64) also timing every replayed level with each build.
 
 Every build is first held bitwise (``torch.equal``) against the plain
 version on the same inputs.  Times are taken in turns: the baselines in
@@ -27,7 +33,7 @@ node id first (``torch.sort`` on the card, the inputs gathered into a
 ``[b*F, 1]`` frontier and the outputs scattered back: ``sorted_ms``) and
 the kernel alone on the sorted inputs (``sorted_kernel_ms``).  Prints one
 JSON line per row, among ``chip_smoke.py``'s own lines; the sums over each
-replayed retrieval follow its levels.
+replayed descent follow its levels.
 """
 from __future__ import annotations
 
@@ -143,8 +149,35 @@ class Turns:
         return row, want
 
 
+def narrow(turns, cfg: dict, device: str):
+    """Phase 1 (module docstring) at ``cfg`` (``chip_smoke.FULL``'s keys)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    dev = torch.device(device)
+    args, filt = chip_smoke.narrow_frontier_inputs(np.random.default_rng(0), cfg, dev)
+    fids, queries = args[:2]
+    root = torch.zeros((fids.shape[0], 1), dtype=torch.int32, device=dev)
+    cap = cfg["capacity"]
+    for geo in ("synthetic", "root"):
+        a = args if geo == "synthetic" else (root, *args[1:])
+        for metric in ("d_inf", "l2", "l1"):
+            for prune in ((False, True) if geo == "synthetic" else (False,)):
+                kw = dict(metric=metric, **(filt if prune else {}))
+                row, want = turns(a, kw, f"narrow {geo} {metric} prune={prune}")
+                nbytes, nops, n_live = chip_smoke.frontier_traffic(a[0], queries, want,
+                                                                   cap, prune)
+                print(json.dumps(dict(phase="narrow", geo=geo, dim=cfg["dims"],
+                                      metric=metric, prune=prune, pairs=a[0].numel(),
+                                      live_evals=n_live,
+                                      bound_ms=chip_smoke.bound(nbytes, nops)[0], **row)),
+                      flush=True)
+                del want
+
+
 def synthetic(turns: Turns):
-    """Phase 1 (module docstring)."""
+    """Phase 2 (module docstring)."""
     import torch
 
     import chip_smoke
@@ -191,6 +224,35 @@ def synthetic(turns: Turns):
         torch.cuda.empty_cache()
 
 
+def replaying_in_turns(turns: Turns, replay):
+    """``chip_smoke.frontier_replay`` (``replay``), also timing every
+    replayed level with each build; the sums over each replayed descent
+    follow its levels."""
+    def replay_in_turns(captured, pages, on_card):
+        out = replay(captured, pages, on_card)
+        sums = []
+        for label, calls in captured.items():
+            total = {}
+            for level, c in enumerate(calls):
+                filt = {k: c[k] for k in ("pdist", "qpd", "rq") if c[k] is not None}
+                args = (c["fids"], c["queries"], pages["vecs"], pages["radius"],
+                        pages["iv"], pages["lv"])
+                row, _ = turns(args, dict(metric=c["metric"], **filt),
+                               f"replay {label} level {level}")
+                print(json.dumps(dict(phase="replay", descent=label, b=c["fids"].shape[0],
+                                      dim=c["queries"].shape[1], level=level,
+                                      w=c["fids"].shape[1], **row)), flush=True)
+                for k, v in row.items():
+                    if isinstance(v, float):
+                        total[k] = total.get(k, 0.0) + v
+            sums.append(dict(phase="replay_sum", descent=label,
+                             dim=pages["vecs"].shape[2], levels=len(calls), **total))
+        for s in sums:
+            print(json.dumps(s), flush=True)
+        return out
+    return replay_in_turns
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", action="append", required=True, metavar="NAME=PATH",
@@ -212,33 +274,12 @@ def main() -> int:
            "new": frontier_scores}
     turns = Turns(fns, opts.sorted)
     print(chip_smoke.nvidia_smi_line(), flush=True)
+    narrow(turns, chip_smoke.FULL, "cuda")
+    torch.cuda.empty_cache()
     synthetic(turns)
     torch.cuda.empty_cache()
 
-    replay = chip_smoke.frontier_replay
-
-    def replay_in_turns(captured, pages, on_card):
-        out = replay(captured, pages, on_card)
-        sums = []
-        for rb, calls in captured.items():
-            total = {}
-            for level, c in enumerate(calls):
-                filt = {k: c[k] for k in ("pdist", "qpd", "rq") if c[k] is not None}
-                args = (c["fids"], c["queries"], pages["vecs"], pages["radius"],
-                        pages["iv"], pages["lv"])
-                row, _ = turns(args, dict(metric=c["metric"], **filt),
-                               f"replay b={rb} level {level}")
-                print(json.dumps(dict(phase="replay", b=rb, level=level,
-                                      w=c["fids"].shape[1], **row)), flush=True)
-                for k, v in row.items():
-                    if isinstance(v, float):
-                        total[k] = total.get(k, 0.0) + v
-            sums.append(dict(phase="replay_sum", b=rb, levels=len(calls), **total))
-        for s in sums:
-            print(json.dumps(s), flush=True)
-        return out
-
-    chip_smoke.frontier_replay = replay_in_turns
+    chip_smoke.frontier_replay = replaying_in_turns(turns, chip_smoke.frontier_replay)
     return chip_smoke.main()
 
 
