@@ -16,10 +16,11 @@ The index slice (``run``):
      (instantiations, registers and spilled bytes of each kernel);
   3. each kernel against its plain PyTorch version at the main path's
      shapes (frontier scorer: bitwise for d_inf/l2/l1, filter off and on;
-     distance scan: d_inf bitwise, sqeuclidean/ip within 1e-5), with
+     distance scan: d_inf bitwise, sqeuclidean/ip within 1e-5, at the
+     index path's 256 x 1,000,000 x 20 and at 1024 x 65,536 x 20), with
      CUDA-event times of the kernel, the plain version and the library
-     call that computes the same function, where there is one (the narrow
-     frontier rows also in device time, ``device_ms``);
+     call that computes the same function, where there is one, and the
+     kernel's device time (``device_ms``);
   4. the main path at full size: 1,000,000 clustered 20-d objects, bulk
      build, kNN at the bench geometry (k=10, max_frontier=64, b=1024) and at
      the smallest exact geometry (max_frontier 2048..16384, b=256) held
@@ -51,7 +52,7 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
      products per f32 product, one bf16 product in bf16), beside the f32
      CUDA-core bound (``f32_cuda_core_bound_ms``);
   9. kernel_distance_prune: the distance kernel's prune epilogue against
-     its plain version at nq=1024, ne=65,536, d=20;
+     its plain version at nq=1024, ne=65,536, d=20, with its device time;
   then the slice's main path, launch counters zeroed just before:
   10. lm_serve: random weights from a seeded generator on the card, one
       prefill forward at b=4, s=2048 through the flash kernel (36 launches)
@@ -79,7 +80,8 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
-library ms),
+library ms; the distance scan at the index path's shape, with its device
+ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
 result line.
@@ -98,6 +100,7 @@ EXACT_FS = (2048, 4096, 8192, 16384)
 FULL = dict(n=1_000_000, dims=20, capacity=32, b_bench=1024, b_exact=256,
             b_parity=128, b_recheck=64, n_small=100_000, kernel_b=1024,
             kernel_F=64, kernel_N=50_000, dist_nq=1024, dist_ne=65_536,
+            dist_path_nq=256, dist_path_ne=1_000_000,
             n_insert=300, timing_reps=5)
 # the kNN-LM serving slice: qwen2.5-3b at full width (all 36 layers), f32
 LM_FULL = dict(
@@ -412,33 +415,43 @@ def run(cfg: dict, device: str):
          bitwise=True, results={f"{m}/{'prune' if p else 'plain'}": r
                                 for (m, p), r in frontier_rows.items()})
 
-    nq, ne = cfg["dist_nq"], cfg["dist_ne"]
-    q = torch.from_numpy(rng.random((nq, dim), np.float32)).to(dev)
-    e = torch.from_numpy(rng.random((ne, dim), np.float32)).to(dev)
-    libcalls = {
-        "d_inf": lambda: torch.cdist(q, e, p=float("inf")),
-        "sqeuclidean": lambda: torch.cdist(q, e, p=2.0) ** 2,
-        "ip": lambda: -(q @ e.T),
-    }
     dist_rows = {}
-    for metric in ("d_inf", "sqeuclidean", "ip"):
-        got = pairwise_distance(q, e, metric)
-        want = pairwise_distance_torch(q, e, metric)
-        sync()
-        err = float((got - want).abs().max())
-        if metric == "d_inf":
-            check(torch.equal(got, want), "distance d_inf not bitwise")
-        else:
-            tol_ok = bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
-            check(tol_ok, f"distance {metric} beyond 1e-5 (max abs err {err})")
-        ms = time_ms(lambda: pairwise_distance(q, e, metric))
-        plain_ms = time_ms(lambda: pairwise_distance_torch(q, e, metric), iters=5)
-        lib_ms = time_ms(libcalls[metric]) if on_card else None
-        bms, by = bound((nq * dim + ne * dim + nq * ne) * 4, nq * ne * dim * 3)
-        dist_rows[metric] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=bms, bound_by=by, max_abs_err=err)
-    emit("kernel_distance", shapes=dict(nq=nq, ne=ne, d=dim), results=dist_rows)
-    del filt, args, fids, queries, q, e
+    for shape, (nq, ne) in (("path", (cfg["dist_path_nq"], cfg["dist_path_ne"])),
+                            ("synthetic", (cfg["dist_nq"], cfg["dist_ne"]))):
+        q = torch.from_numpy(rng.random((nq, dim), np.float32)).to(dev)
+        e = torch.from_numpy(rng.random((ne, dim), np.float32)).to(dev)
+        libcalls = {
+            "d_inf": lambda: torch.cdist(q, e, p=float("inf")),
+            "sqeuclidean": lambda: torch.cdist(q, e, p=2.0) ** 2,
+            "ip": lambda: -(q @ e.T),
+        }
+        for metric in ("d_inf", "sqeuclidean", "ip"):
+            got = pairwise_distance(q, e, metric)
+            want = pairwise_distance_torch(q, e, metric)
+            sync()
+            err = float((got - want).abs().max())
+            if metric == "d_inf":
+                check(torch.equal(got, want), f"distance {shape} d_inf not bitwise")
+            else:
+                tol_ok = bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+                check(tol_ok, f"distance {shape} {metric} beyond 1e-5 (max abs err {err})")
+            del got, want
+            kernel = lambda: pairwise_distance(q, e, metric)
+            ms = time_ms(kernel)
+            plain_ms = time_ms(lambda: pairwise_distance_torch(q, e, metric), iters=3,
+                               warmup=1)
+            lib_ms = time_ms(libcalls[metric], iters=5, warmup=1) if on_card else None
+            bms, by = bound((nq * dim + ne * dim + nq * ne) * 4, nq * ne * dim * 3)
+            dist_rows[(shape, metric)] = dict(
+                ms=ms, device_ms=device_ms(kernel) if on_card else None,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                max_abs_err=err)
+        del q, e, libcalls
+    emit("kernel_distance",
+         shapes=dict(path=dict(nq=cfg["dist_path_nq"], ne=cfg["dist_path_ne"], d=dim),
+                     synthetic=dict(nq=cfg["dist_nq"], ne=cfg["dist_ne"], d=dim)),
+         results={f"{s}/{m}": r for (s, m), r in dist_rows.items()})
+    del filt, args, fids, queries
 
     # ---------------------------------------------------------------- 4-5
     # the main path: launch counts are zeroed here and read after phase 5
@@ -686,7 +699,8 @@ def run(cfg: dict, device: str):
 
     d_inf_p = frontier_rows[("d_inf", True)]
     d_inf_u = frontier_rows[("d_inf", False)]
-    dd = dist_rows["d_inf"]
+    dd = dist_rows[("path", "d_inf")]
+    ds = dist_rows[("synthetic", "d_inf")]
     kernels = [
         dict(name="frontier_scores", route="cuda",
              source="src/repro_torch/kernels/csrc/frontier.cu",
@@ -710,9 +724,13 @@ def run(cfg: dict, device: str):
              replaces="src/repro/kernels/distance.py:33",
              launches=launches["distance"],
              launches_per_pass={"brute_force_knn": scan_launches["distance"]},
-             max_abs_err=dd["max_abs_err"],
-             ms=dd["ms"], plain_ms=dd["plain_ms"], bound_ms=dd["bound_ms"],
-             bound_by=dd["bound_by"], library_ms=dd["library_ms"]),
+             max_abs_err=dd["max_abs_err"], ms=dd["ms"], device_ms=dd["device_ms"],
+             plain_ms=dd["plain_ms"], bound_ms=dd["bound_ms"],
+             bound_by=dd["bound_by"], library_ms=dd["library_ms"],
+             shape=dict(nq=cfg["dist_path_nq"], ne=cfg["dist_path_ne"], d=dim),
+             synthetic=dict(nq=cfg["dist_nq"], ne=cfg["dist_ne"], d=dim,
+                            **{k: ds[k] for k in ("ms", "device_ms", "plain_ms",
+                                                  "bound_ms", "library_ms")})),
     ]
     return kernels
 
@@ -858,8 +876,9 @@ def run_lm(cfg: dict, device: str):
         decided = (true_d - (r_q[:, None] + r_e[None, :]).double()).abs() > 1e-6
         check(torch.equal(gm[decided], wm[decided]), f"prune {metric}: masks differ")
         bms, by = bound((nq * d + ne * d + nq + ne) * 4 + nq * ne * 5, nq * ne * d * 3)
+        kernel = lambda: pairwise_distance_prune(q, e, r_q, r_e, metric)
         prune_rows[metric] = dict(
-            ms=time_ms(lambda: pairwise_distance_prune(q, e, r_q, r_e, metric)),
+            ms=time_ms(kernel), device_ms=device_ms(kernel) if on_card else None,
             plain_ms=time_ms(lambda: pairwise_distance_prune_torch(q, e, r_q, r_e, metric),
                              iters=5),
             library_ms=None, bound_ms=bms, bound_by=by, max_abs_err=err,
@@ -1105,7 +1124,7 @@ def run_lm(cfg: dict, device: str):
              source="src/repro_torch/kernels/csrc/distance.cu",
              replaces="src/repro/kernels/distance.py:62",
              launches=0, launches_per_pass={}, max_abs_err=pr["max_abs_err"], ms=pr["ms"],
-             plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
+             device_ms=pr["device_ms"], plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
              bound_by=pr["bound_by"], library_ms=None),
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",

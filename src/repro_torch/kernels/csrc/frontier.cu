@@ -14,6 +14,18 @@
 // its metric is evaluated (equality keeps), and a page with no live entry
 // skips the metric and the page load altogether.
 //
+// Pages of any width.  An entry's four outputs depend only on its own row,
+// radius, validity and pdist and on its pair's query, qpd and rq, so a page
+// of cap > kSeg = 64 entries is scored as consecutive segments of at most
+// 64 entries, each like a page of its own, in the same launch: a narrow
+// warp keeps and stages one segment at a time (a page stage holds
+// min(cap, 64) rows whatever cap is), a wide block loops over the segments
+// of its run and stages each query row once.  The index's own pages (cap
+// <= 32: one entry a lane) and the wide pages up to 64 entries run
+// instantiations with no segment code, as before; wider wide pages take
+// one instantiation a metric (SEGS: 4-byte loads, the fold from level 1 in
+// the warp buffer, which is _sum_last's order at any dim).
+//
 // Two variants, chosen by the launcher from the row width:
 //
 // * narrow rows (dim <= kNarrowMaxDim = 128, the SM-tree's own objects).
@@ -145,7 +157,9 @@
 namespace {
 
 constexpr int kNarrowMaxDim = 128;
-constexpr int kMaxCap = 64;
+// entries a segment: a page wider than this is scored as consecutive
+// segments of at most kSeg entries (header, "Pages of any width")
+constexpr int kSeg = 64;
 constexpr int kNarrowWarps = 8;       // warps a narrow block holds, at most
 constexpr int kNarrowStages = 2;     // a narrow warp's page ring: pairs staged or in flight
 // pairs a narrow launch takes (32-bit indices; 2^30 pairs of outputs are
@@ -162,7 +176,7 @@ template <int V> constexpr int fold_batch = V == 4 ? 4 : 8;
 constexpr int kMinBlocks = 2;        // wide blocks an SM must hold (registers)
 // bytes of the wide kernel's static arrays (pair_s .. d_s), rounded up; a
 // launch reads the exact size from the kernel
-constexpr int kWideStaticSmem = kRun * (8 + 4 + 1 + 8 + 4 + kMaxCap * 9) + 256;
+constexpr int kWideStaticSmem = kRun * (8 + 4 + 1 + 1 + 8 + 4 + kSeg * 9) + 256;
 constexpr float kPrunePad = 2e-5f;   // kernels/frontier.py:_PRUNE_PAD
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -351,16 +365,17 @@ struct Chunk {
 // What a narrow launch tells its warps about the staging (header above).
 struct NarrowStage {
   int stride;      // floats between staged rows: a multiple of 4, stride / 4 odd
-  int len;         // floats of one stage: rows 0 .. cap - 1 the page, row cap the query
+  int len;         // floats of one stage: rows 0 .. n - 1 a segment's entries (n =
+                   // min(cap, kSeg)), row n the query
   int unit;        // floats a row copy moves at a time: 4 (16-byte cp.async), else 1
 };
 
 // floats of a narrow warp's shared memory: the page stages, the staged
-// pairs' radii (kNarrowStages x cap) and, for l1/l2, the term buffer; a
-// multiple of 4, so every warp's stages stay 16-byte aligned
+// segments' radii (kNarrowStages x n, n = min(cap, kSeg)) and, for l1/l2, the
+// term buffer; a multiple of 4, so every warp's stages stay 16-byte aligned
 template <int METRIC>
-__host__ __device__ inline int narrow_warp_floats(const NarrowStage& sg, int cap, int dim) {
-  return kNarrowStages * (sg.len + ((cap + 3) & ~3)) + (METRIC == kDinf ? 0 : term_len(dim));
+__host__ __device__ inline int narrow_warp_floats(const NarrowStage& sg, int n, int dim) {
+  return kNarrowStages * (sg.len + ((n + 3) & ~3)) + (METRIC == kDinf ? 0 : term_len(dim));
 }
 
 // A lane's walk over the (live row, unit) copies of a pair: it starts at
@@ -368,7 +383,8 @@ __host__ __device__ inline int narrow_warp_floats(const NarrowStage& sg, int cap
 // (32 / C, 32 % C): no division per copy.
 struct CopyWalk { int k0, c0, dk, dc, units; };
 
-// Stage a kept pair's live rows and its query row into ``stg``; the
+// Stage a kept segment's live rows (``page``: its first row; ``n``: its
+// entries) and its query row into ``stg``; the
 // stage's barrier (32 arrivals) completes when they have landed.  The warp
 // lists the live rows (``rows``, its own list in shared memory) and copies
 // them unit by unit with cp.async, 16 or 4 bytes at a time, the 32 lanes on
@@ -377,9 +393,9 @@ template <int NU>
 __device__ __forceinline__ void stage_pair(float* stg, unsigned long long* bar,
                                            unsigned char* rows, unsigned long long live,
                                            const float* page, const float* q,
-                                           const NarrowStage& sg, const CopyWalk& cw, int cap,
+                                           const NarrowStage& sg, const CopyWalk& cw, int n,
                                            int dim, int lane) {
-  float* qs = stg + cap * sg.stride;
+  float* qs = stg + n * sg.stride;
   __syncwarp();                                 // the last pair's list is read
 #pragma unroll
   for (int u = 0; u < NU; ++u) {
@@ -387,8 +403,8 @@ __device__ __forceinline__ void stage_pair(float* stg, unsigned long long* bar,
     if ((live >> s) & 1ull) rows[__popcll(live & ((1ull << s) - 1ull))] = (unsigned char)s;
   }
   __syncwarp();
-  const int n = __popcll(live) * cw.units;
-  for (int g = lane, k = cw.k0, c = cw.c0; g < n; g += 32) {
+  const int copies = __popcll(live) * cw.units;
+  for (int g = lane, k = cw.k0, c = cw.c0; g < copies; g += 32) {
     const int s = rows[k];
     if (sg.unit == 4)
       cp_async16(stg + s * sg.stride + 4 * c, page + s * dim + 4 * c);
@@ -408,10 +424,11 @@ __device__ __forceinline__ void stage_pair(float* stg, unsigned long long* bar,
 }
 
 // Narrow rows: persistent warps, each on every T-th pair (header above).
-// The keep step runs ahead of the score step: it keeps pair kp, writes a
-// pair with no live entry at once, and hands a live pair's row copies to
-// the next free stage, until kNarrowStages live pairs are in flight.  NU:
-// entries a lane (cap <= 32 * NU).
+// The keep step runs ahead of the score step: it keeps segment ks of pair
+// kp (a page of cap <= kSeg entries is one segment), writes a segment with
+// no live entry at once, and hands a live segment's row copies to the next
+// free stage, until kNarrowStages live segments are in flight.  NU:
+// entries a lane (min(cap, kSeg) <= 32 * NU).
 template <int METRIC, bool PRUNE, int NU>
 __global__ void __launch_bounds__(32 * kNarrowWarps) frontier_narrow_kernel(
     const int* __restrict__ fids, const float* __restrict__ queries,
@@ -427,9 +444,10 @@ __global__ void __launch_bounds__(32 * kNarrowWarps) frontier_narrow_kernel(
   extern __shared__ __align__(16) float smem[];
   __shared__ int leaf_off[kNarrowMaxDim];
   __shared__ unsigned long long bars[kNarrowWarps][S];
-  __shared__ unsigned char live_rows[kNarrowWarps][kMaxCap];
-  __shared__ unsigned char slot_f[kNarrowWarps][S][kMaxCap];   // a staged pair's flags
+  __shared__ unsigned char live_rows[kNarrowWarps][kSeg];
+  __shared__ unsigned char slot_f[kNarrowWarps][S][kSeg];   // a staged segment's flags
   __shared__ int slot_pair[kNarrowWarps][S];
+  __shared__ int slot_s0[kNarrowWarps][S];                  // its first entry
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (METRIC != kDinf)
@@ -450,10 +468,12 @@ __global__ void __launch_bounds__(32 * kNarrowWarps) frontier_narrow_kernel(
   const int end = (pairs - 1 - x) / T + 1;      // this warp's pairs
   auto pair_of = [&](int t) { return x + t * T; };
   // this warp's shared memory (narrow_warp_floats): S page stages, the
-  // staged pairs' radii, the term buffer
-  float* ring = smem + (size_t)warp * narrow_warp_floats<METRIC>(sg, cap, dim);
+  // staged segments' radii, the term buffer.  NU == 1 (cap <= 32): a page is
+  // one segment, and the segment bookkeeping folds away at compile time.
+  const int sn = NU == 1 ? cap : min(cap, kSeg);   // a stage's entry rows
+  float* ring = smem + (size_t)warp * narrow_warp_floats<METRIC>(sg, sn, dim);
   float* slot_r = ring + S * sg.len;
-  float* col = slot_r + S * cap + lane;         // this lane's term column
+  float* col = slot_r + S * sn + lane;          // this lane's term column
   const int units = dim / sg.unit;
   const CopyWalk cw{lane / units, lane % units, 32 / units, 32 % units, units};
   const float inf = CUDART_INF_F;
@@ -480,15 +500,16 @@ __global__ void __launch_bounds__(32 * kNarrowWarps) frontier_narrow_kernel(
 
   Chunk ch = load_chunk(0);                     // the chunk that holds pair kp
   unsigned parity = 0;                          // bit k: the phase stage k waits for
-  int kp = 0, head = 0, staged = 0;
+  int kp = 0, s0 = 0, head = 0, staged = 0;     // s0: pair kp's segment's first entry
   while (true) {
-    // keep steps: until S live pairs are in flight or the range is kept
+    // keep steps: until S live segments are in flight or the range is kept
     while (staged < S && kp < end) {
-      if (kp > 0 && (kp & 31) == 0) ch = load_chunk(kp >> 5);
+      if (kp > 0 && (kp & 31) == 0 && s0 == 0) ch = load_chunk(kp >> 5);
       const int fid = __shfl_sync(kFull, ch.fid, kp & 31);
       const float qp = PRUNE ? __shfl_sync(kFull, ch.qp, kp & 31) : 0.f;
       const float rqi = PRUNE ? __shfl_sync(kFull, ch.rqi, kp & 31) : 0.f;
       const int node = min(fid, n_nodes - 1);
+      const int n = NU == 1 ? cap : min(kSeg, cap - s0);   // the segment's entries
       float r[NU];
       unsigned f[NU];
       unsigned long long live = 0;
@@ -497,8 +518,8 @@ __global__ void __launch_bounds__(32 * kNarrowWarps) frontier_narrow_kernel(
         const int s = lane + 32 * u;
         bool keep = false, iv = false, lv = false;
         r[u] = 0.f;
-        if (fid >= 0 && s < cap) {
-          const long long e = (long long)node * cap + s;
+        if (fid >= 0 && s < n) {
+          const long long e = (long long)node * cap + s0 + s;
           r[u] = radius[e];
           keep = keep_entry<PRUNE>(true, qp, rqi, r[u], PRUNE ? pdist[e] : 0.f);
           iv = ival[e] != 0;
@@ -512,42 +533,50 @@ __global__ void __launch_bounds__(32 * kNarrowWarps) frontier_narrow_kernel(
 #pragma unroll
         for (int u = 0; u < NU; ++u) {
           const int s = lane + 32 * u;
-          if (s < cap) {
-            slot_r[st * cap + s] = r[u];
+          if (s < n) {
+            slot_r[st * sn + s] = r[u];
             slot_f[warp][st][s] = (unsigned char)f[u];
           }
         }
-        if (lane == 0) slot_pair[warp][st] = pair_of(kp);
+        if (lane == 0) {
+          slot_pair[warp][st] = pair_of(kp);
+          if (NU > 1) slot_s0[warp][st] = s0;
+        }
         stage_pair<NU>(ring + st * sg.len, &bars[warp][st], live_rows[warp], live,
-                       vecs + (long long)node * cap * dim,
+                       vecs + ((long long)node * cap + s0) * dim,
                        queries + (long long)__shfl_sync(kFull, ch.i, kp & 31) * dim, sg, cw,
-                       cap, dim, lane);
+                       sn, dim, lane);
         ++staged;
       } else {                                  // nothing to score: +inf rows now
-        const long long o = (long long)pair_of(kp) * cap;
+        const long long o = (long long)pair_of(kp) * cap + s0;
 #pragma unroll
         for (int u = 0; u < NU; ++u)
-          if (lane + 32 * u < cap) write_row(o, lane + 32 * u, 0u, 0.f, 0.f);
+          if (lane + 32 * u < n) write_row(o, lane + 32 * u, 0u, 0.f, 0.f);
       }
-      ++kp;
+      if (NU == 1 || (s0 += kSeg) >= cap) {     // the pair is kept: the next one
+        s0 = 0;
+        ++kp;
+      }
     }
     if (staged == 0) break;
-    // score step: the oldest staged pair, once its copies have landed
+    // score step: the oldest staged segment, once its copies have landed
     bar_wait(&bars[warp][head], (parity >> head) & 1u);
     parity ^= 1u << head;
     __syncwarp();
     const float* stg = ring + head * sg.len;
-    const long long o = (long long)slot_pair[warp][head] * cap;
+    const int s1 = NU == 1 ? 0 : slot_s0[warp][head];
+    const int n = NU == 1 ? cap : min(kSeg, cap - s1);
+    const long long o = (long long)slot_pair[warp][head] * cap + s1;
 #pragma unroll
     for (int u = 0; u < NU; ++u) {
       const int s = lane + 32 * u;
-      if (s >= cap) continue;
+      if (s >= n) continue;
       const unsigned f = slot_f[warp][head][s];
       float d = 0.f;
       if (f != 0u)
-        d = metric_narrow<METRIC>(stg + s * sg.stride, stg + cap * sg.stride, col, leaf_off,
+        d = metric_narrow<METRIC>(stg + s * sg.stride, stg + sn * sg.stride, col, leaf_off,
                                   dim);
-      write_row(o, s, f, d, slot_r[head * cap + s]);
+      write_row(o, s, f, d, slot_r[head * sn + s]);
     }
     __syncwarp();                        // the stage is read before it is refilled
     head = head + 1 < S ? head + 1 : 0;
@@ -774,8 +803,10 @@ __device__ __forceinline__ float metric_wide(const float* __restrict__ ev,
 }
 
 // Wide rows: a block per run of ``run`` consecutive pairs, a warp per
-// (pair, entry) item (header above).
-template <int METRIC, bool PRUNE, int V, int R>
+// (pair, entry) item (header above).  SEGS: pages wider than kSeg, scored a
+// segment at a time; the instantiations for cap <= kSeg have no segment
+// code at all.
+template <int METRIC, bool PRUNE, int V, int R, bool SEGS = false>
 __global__ void __launch_bounds__(32 * kWideWarps, kMinBlocks) frontier_wide_kernel(
     const int* __restrict__ fids, const float* __restrict__ queries,
     const float* __restrict__ vecs, const float* __restrict__ radius,
@@ -794,9 +825,10 @@ __global__ void __launch_bounds__(32 * kWideWarps, kMinBlocks) frontier_wide_ker
   __shared__ long long qi_s[kRun];     // the staged query rows' indices
   __shared__ int qslot_s[kRun];        // pair g's row among them
   __shared__ int nq_s;
-  __shared__ unsigned char live_s[kRun][kMaxCap];   // bit 0: internal, bit 1: leaf
-  __shared__ float r_s[kRun][kMaxCap];
-  __shared__ float d_s[kRun][kMaxCap];
+  __shared__ bool qdone_s[kRun];       // SEGS: row k is staged (by an earlier segment)
+  __shared__ unsigned char live_s[kRun][kSeg];   // bit 0: internal, bit 1: leaf
+  __shared__ float r_s[kRun][kSeg];
+  __shared__ float d_s[kRun][kSeg];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
@@ -810,76 +842,95 @@ __global__ void __launch_bounds__(32 * kWideWarps, kMinBlocks) frontier_wide_ker
     fid_s[threadIdx.x] = fids[p];
   }
   __syncthreads();
-  // the keep mask of every (pair, entry), before any metric work
-  for (int g = warp; g < ng; g += nwarps) {
-    const long long p = pair_s[g];
-    const int fid = fid_s[g];
-    const long long node = min(max(fid, 0), n_nodes - 1);
-    const float qp = PRUNE ? qpd[p] : 0.f;
-    const float rqi = PRUNE ? rq[p / w] : 0.f;
-    bool any = false;
-    for (int s = lane; s < cap; s += 32) {
-      const long long e = node * cap + s;
-      const float r = radius[e];
-      const bool keep = keep_entry<PRUNE>(fid >= 0, qp, rqi, r, PRUNE ? pdist[e] : 0.f);
-      const bool iv = keep && ival[e] != 0;
-      const bool lv = keep && lval[e] != 0;
-      r_s[g][s] = r;
-      live_s[g][s] = (unsigned char)(iv | (lv << 1));
-      any = any || iv || lv;
-    }
-    any = __any_sync(kFull, any);
-    if (lane == 0) any_s[g] = any;
-  }
-  // one staged row for each run of pairs with the same query (consecutive
-  // pairs of a frontier row share it), if one of them has a live entry
-  if (threadIdx.x == 0) {
-    int nq = 0;
-    for (int g = 0; g < ng; ++g) {
-      const long long i = pair_s[g] / w;
-      if (nq == 0 || qi_s[nq - 1] != i) qi_s[nq++] = i;
-      qslot_s[g] = nq - 1;
-    }
-    nq_s = nq;
-  }
-  __syncthreads();
   float* qs = smem;                                         // [qrows][dim]
   float* buf = smem + (size_t)qrows * dim + (size_t)warp * fold.buf_len;
-  for (int k = 0; k < nq_s; ++k) {
+  // does a pair of query row k have a live entry in this segment?
+  auto qlive = [&](int k) {
     bool live = false;
     for (int g = 0; g < ng; ++g) live = live || (qslot_s[g] == k && any_s[g]);
-    if (!live) continue;
-    const float* src = queries + qi_s[k] * dim;
-    for (int x = threadIdx.x * V; x < dim; x += blockDim.x * V)
-      store_shared<V>(qs + (size_t)k * dim + x, load_global<V>(src + x));
-  }
-  __syncthreads();
+    return live;
+  };
+  // entries s0 .. s0 + n - 1 of every page of the run, as if they were the
+  // page (SEGS: one segment of kSeg entries at a time; else the whole page)
+  auto segment = [&](const int s0, const int n) {
+    // the keep mask of every (pair, entry), before any metric work
+    for (int g = warp; g < ng; g += nwarps) {
+      const long long p = pair_s[g];
+      const int fid = fid_s[g];
+      const long long node = min(max(fid, 0), n_nodes - 1);
+      const float qp = PRUNE ? qpd[p] : 0.f;
+      const float rqi = PRUNE ? rq[p / w] : 0.f;
+      bool any = false;
+      for (int s = lane; s < n; s += 32) {
+        const long long e = node * cap + s0 + s;
+        const float r = radius[e];
+        const bool keep = keep_entry<PRUNE>(fid >= 0, qp, rqi, r, PRUNE ? pdist[e] : 0.f);
+        const bool iv = keep && ival[e] != 0;
+        const bool lv = keep && lval[e] != 0;
+        r_s[g][s] = r;
+        live_s[g][s] = (unsigned char)(iv | (lv << 1));
+        any = any || iv || lv;
+      }
+      any = __any_sync(kFull, any);
+      if (lane == 0) any_s[g] = any;
+    }
+    // one staged row for each run of pairs with the same query (consecutive
+    // pairs of a frontier row share it), once one of them has a live entry
+    if (threadIdx.x == 0 && s0 == 0) {
+      int nq = 0;
+      for (int g = 0; g < ng; ++g) {
+        const long long i = pair_s[g] / w;
+        if (nq == 0 || qi_s[nq - 1] != i) {
+          if (SEGS) qdone_s[nq] = false;
+          qi_s[nq++] = i;
+        }
+        qslot_s[g] = nq - 1;
+      }
+      nq_s = nq;
+    }
+    __syncthreads();
+    for (int k = 0; k < nq_s; ++k) {
+      if ((SEGS && qdone_s[k]) || !qlive(k)) continue;
+      const float* src = queries + qi_s[k] * dim;
+      for (int x = threadIdx.x * V; x < dim; x += blockDim.x * V)
+        store_shared<V>(qs + (size_t)k * dim + x, load_global<V>(src + x));
+    }
+    __syncthreads();
 
-  // items: (pair g, entry s), a warp each; all of an item is uniform in the warp
-  for (int it = warp; it < ng * cap; it += nwarps) {
-    const int g = it / cap;
-    const int s = it - g * cap;
-    if (live_s[g][s] == 0) continue;
-    const long long node = min(max(fid_s[g], 0), n_nodes - 1);
-    const float d = metric_wide<METRIC, V, R>(vecs + (node * cap + s) * dim,
-                                              qs + (size_t)qslot_s[g] * dim, dim, fold,
-                                              buf, lane);
-    if (lane == 0) d_s[g][s] = d;
-  }
-  __syncthreads();
-  // the run's outputs, a pair's row at a time
-  for (int x = threadIdx.x; x < ng * cap; x += blockDim.x) {
-    const int g = x / cap;
-    const int s = x - g * cap;
-    const unsigned f = live_s[g][s];
-    const float d = f != 0u ? d_s[g][s] : 0.f;
-    const float r = r_s[g][s];
-    const long long o = pair_s[g] * cap + s;
-    const bool iv = f & 1u, lv = f & 2u;
-    dmax[o] = iv ? __fadd_rn(d, r) : inf;
-    score[o] = iv ? __fsub_rn(d, r) : inf;
-    leafd[o] = lv ? d : inf;
-    dq[o] = iv ? d : inf;
+    // items: (pair g, entry s), a warp each; all of an item is uniform in the warp
+    for (int it = warp; it < ng * n; it += nwarps) {
+      const int g = it / n;
+      const int s = it - g * n;
+      if (live_s[g][s] == 0) continue;
+      const long long node = min(max(fid_s[g], 0), n_nodes - 1);
+      const float d = metric_wide<METRIC, V, R>(vecs + (node * cap + s0 + s) * dim,
+                                                qs + (size_t)qslot_s[g] * dim, dim, fold,
+                                                buf, lane);
+      if (lane == 0) d_s[g][s] = d;
+    }
+    if (SEGS && threadIdx.x == 0 && s0 + kSeg < cap)   // read by the next segment
+      for (int k = 0; k < nq_s; ++k) qdone_s[k] = qdone_s[k] || qlive(k);
+    __syncthreads();
+    // the segment's outputs, a pair's row at a time
+    for (int x = threadIdx.x; x < ng * n; x += blockDim.x) {
+      const int g = x / n;
+      const int s = x - g * n;
+      const unsigned f = live_s[g][s];
+      const float d = f != 0u ? d_s[g][s] : 0.f;
+      const float r = r_s[g][s];
+      const long long o = pair_s[g] * cap + s0 + s;
+      const bool iv = f & 1u, lv = f & 2u;
+      dmax[o] = iv ? __fadd_rn(d, r) : inf;
+      score[o] = iv ? __fsub_rn(d, r) : inf;
+      leafd[o] = lv ? d : inf;
+      dq[o] = iv ? d : inf;
+    }
+    if (SEGS && s0 + kSeg < cap) __syncthreads();   // the segment's arrays are read
+  };
+  if constexpr (SEGS) {
+    for (int s0 = 0; s0 < cap; s0 += kSeg) segment(s0, min(kSeg, cap - s0));
+  } else {
+    segment(0, cap);
   }
 }
 
@@ -940,13 +991,14 @@ KernelInfo read_kernel_info(const void* kern, int dev) {
 
 // One cache for each instantiation (read once for each device): they all
 // share one function type, so the cache cannot be keyed on the kernel's type.
-template <int METRIC, bool PRUNE, int V, int R>
+template <int METRIC, bool PRUNE, int V, int R, bool SEGS>
 KernelInfo wide_kernel_info(int dev) {
   static std::mutex mu;
   static KernelInfo info[kMaxDevices];          // zero: not read yet
   std::lock_guard<std::mutex> lock(mu);
   if (!info[dev].ok)
-    info[dev] = read_kernel_info((const void*)frontier_wide_kernel<METRIC, PRUNE, V, R>, dev);
+    info[dev] = read_kernel_info((const void*)frontier_wide_kernel<METRIC, PRUNE, V, R, SEGS>,
+                                 dev);
   return info[dev];
 }
 
@@ -979,11 +1031,12 @@ int launch_narrow(const Args& a, cudaStream_t st) {
   NarrowStage sg;
   sg.stride = (a.dim + 3) & ~3;
   if ((sg.stride >> 2) % 2 == 0) sg.stride += 4;
-  sg.len = (a.cap + 1) * sg.stride;
+  const int sn = a.cap < kSeg ? a.cap : kSeg;     // a stage's entry rows
+  sg.len = (sn + 1) * sg.stride;
   const bool aligned = a.dim % 4 == 0 &&
       (((unsigned long long)a.vecs | (unsigned long long)a.queries) & 15ull) == 0;
   sg.unit = aligned ? 4 : 1;
-  const size_t ring = sizeof(float) * narrow_warp_floats<METRIC>(sg, a.cap, a.dim);
+  const size_t ring = sizeof(float) * narrow_warp_floats<METRIC>(sg, sn, a.dim);
   int warps = kNarrowWarps;
   while (warps > 1 && warps * ring > k.smem_cap) --warps;
   if (ring > k.smem_cap) return (int)cudaErrorInvalidValue;
@@ -1009,9 +1062,9 @@ int launch_narrow(const Args& a, cudaStream_t st) {
 // many blocks share an SM by shared memory as by registers, and that gives
 // every SM a block.  A run's pairs span at most (G - 1) / w + 2 queries:
 // the rows staged.
-template <int METRIC, bool PRUNE, int V, int R>
+template <int METRIC, bool PRUNE, int V, int R, bool SEGS = false>
 int launch_wide(const Args& a, cudaStream_t st) {
-  auto kern = frontier_wide_kernel<METRIC, PRUNE, V, R>;
+  auto kern = frontier_wide_kernel<METRIC, PRUNE, V, R, SEGS>;
   Fold fold{0, 0};
   if (METRIC != kDinf) {
     const int n = a.dim >> R;                 // the length after R levels
@@ -1022,7 +1075,7 @@ int launch_wide(const Args& a, cudaStream_t st) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  const KernelInfo k = wide_kernel_info<METRIC, PRUNE, V, R>(dev);
+  const KernelInfo k = wide_kernel_info<METRIC, PRUNE, V, R, SEGS>(dev);
   if (!k.ok) {
     err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
@@ -1072,8 +1125,11 @@ int launch_wide_levels(const Args& a, int R, cudaStream_t st) {
 template <int METRIC, bool PRUNE>
 int launch(const Args& a, cudaStream_t st) {
   if (a.dim <= kNarrowMaxDim)
-    return a.cap <= 32 ? launch_narrow<METRIC, PRUNE, 1>(a, st)
-                       : launch_narrow<METRIC, PRUNE, 2>(a, st);
+    return a.cap <= 32 ? launch_narrow<METRIC, PRUNE, 1>(a, st)    // segments of
+                       : launch_narrow<METRIC, PRUNE, 2>(a, st);   // <= 64 entries
+  // pages wider than kSeg: one instantiation a metric, 4-byte loads and the
+  // fold from level 1 in the warp buffer (R = 0), _sum_last's order at any dim
+  if (a.cap > kSeg) return launch_wide<METRIC, PRUNE, 1, 0, true>(a, st);
   if constexpr (METRIC == kDinf) {
     const bool aligned = a.dim % 4 == 0 &&
         (((unsigned long long)a.vecs | (unsigned long long)a.queries) & 15ull) == 0;
@@ -1094,7 +1150,6 @@ int launch(const Args& a, cudaStream_t st) {
 // The widest row the wide variant takes on the current device (one query
 // row and, for l1/l2 at the worst dim, one row buffer in shared memory).
 extern "C" int frontier_max_dim() { return wide_smem_cap() / 8; }
-extern "C" int frontier_max_cap() { return kMaxCap; }
 extern "C" int frontier_narrow_max_dim() { return kNarrowMaxDim; }
 
 // Launch on ``stream``; returns the CUDA error code (0 on success).
@@ -1105,8 +1160,7 @@ extern "C" int frontier_scores_launch(
     const float* pdist, const float* qpd, const float* rq, float* dmax,
     float* score, float* leafd, float* dq, int b, int w, int n_nodes,
     int cap, int dim, int metric, int prune, void* stream) {
-  if (dim < 1 || cap < 1 || cap > kMaxCap || n_nodes < 1 || metric < 0 ||
-      metric > 2)
+  if (dim < 1 || cap < 1 || n_nodes < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
   const Args a{fids, queries, vecs, radius, ival, lval, pdist, qpd, rq,
                dmax, score, leafd, dq, (long long)b * w, w, n_nodes, cap, dim};

@@ -81,18 +81,35 @@ def pairwise_distance_torch(q, e, metric: str = "d_inf"):
     return out
 
 
-@functools.cache
-def _lib():
-    """The built library, with its C signatures declared (once)."""
-    from repro_torch.kernels import _build
-    lib = _build.load("distance")
+def _declare(lib):
+    """Declare the C signature of a build of ``csrc/distance.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pairwise_distance_launch.argtypes = [p] * 6 + [i] * 4 + [p]
     lib.pairwise_distance_launch.restype = i
     return lib
 
 
+@functools.cache
+def _lib():
+    """The built library, with its C signature declared (once)."""
+    from repro_torch.kernels import _build
+    return _declare(_build.load("distance"))
+
+
 def _pairwise_distance_cuda(q, e, metric: str, r_q=None, r_e=None):
+    out = _launch(_lib(), q, e, metric, r_q, r_e)
+    launched = out[0].numel() > 0
+    if r_q is not None:
+        pairwise_distance_prune.launches += launched
+        return out
+    pairwise_distance.launches += launched
+    return out[0]
+
+
+def _launch(lib, q, e, metric: str, r_q=None, r_e=None):
+    """Check the inputs, launch ``lib``'s kernel (a build of
+    ``csrc/distance.cu``) and return (dist, mask or None); counts
+    nothing."""
     dev = q.device
     if e.device != dev:
         raise ValueError(f"e is on {e.device}, q on {dev}")
@@ -118,8 +135,7 @@ def _pairwise_distance_cuda(q, e, metric: str, r_q=None, r_e=None):
     out = torch.empty((nq, ne), dtype=torch.float32, device=dev)
     mask = torch.empty((nq, ne), dtype=torch.bool, device=dev) if prune else None
     if nq == 0 or ne == 0:
-        return (out, mask) if prune else out
-    lib = _lib()
+        return out, mask
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -129,11 +145,7 @@ def _pairwise_distance_cuda(q, e, metric: str, r_q=None, r_e=None):
                                           stream)
     if rc != 0:
         raise RuntimeError(f"distance kernel launch failed: cudaError {rc}")
-    if prune:
-        pairwise_distance_prune.launches += 1
-        return out, mask
-    pairwise_distance.launches += 1
-    return out
+    return out, mask
 
 
 def pairwise_distance(q, e, metric: str = "d_inf"):

@@ -22,12 +22,13 @@ Two implementations of one function:
   * the CUDA kernel ``csrc/frontier.cu`` (replaces ``_frontier_kernel`` and
     ``_frontier_kernel_pruned``), bitwise equal to the plain version.  It
     has a variant for narrow rows (``dim <= 128``: persistent warps, each
-    on every T-th frontier slot; node metadata copied ahead into a ring in
-    shared memory, slots with no live entry written at once, live slots'
-    rows copied into a ring of page stages while an earlier one is scored,
-    and the l1/l2 fold in registers) and one for wide rows; the launcher
-    picks one from ``dim``.  ``cap`` is at most 64 in both.  The
-    wide variant reads entry rows straight from device memory with 16-byte
+    on every T-th frontier slot; a slot's node metadata read at its keep
+    step, slots with no live entry written at once, live slots' rows
+    copied into a ring of page stages while an earlier one is scored, and
+    the l1/l2 fold in registers) and one for wide rows; the launcher picks
+    one from ``dim``.  Both take pages of any ``cap``: a page wider than
+    64 entries is scored as segments of at most 64, in the same launch.
+    The wide variant reads entry rows straight from device memory with 16-byte
     loads and folds l1/l2 in registers (each lane's slots in ``_sum_last``'s
     order, then shuffles; a warp buffer in shared memory only for dims
     whose halving leaves the lane mapping early).  A block takes a run of
@@ -110,7 +111,6 @@ def _declare(lib):
     lib.frontier_scores_launch.argtypes = [p] * 13 + [i] * 7 + [p]
     lib.frontier_scores_launch.restype = i
     lib.frontier_max_dim.restype = i
-    lib.frontier_max_cap.restype = i
     lib.frontier_narrow_max_dim.restype = i
     return lib
 
@@ -154,10 +154,9 @@ def _frontier_scores_cuda(fids, queries, vecs, radius, internal_valid,
         _check("qpd", qpd, torch.float32, (b, w), dev)
         _check("rq", rq, torch.float32, (b,), dev)
     lib = _lib()
-    if dim > lib.frontier_max_dim() or cap > lib.frontier_max_cap() or N < 1:
-        raise ValueError(f"frontier kernel takes dim <= {lib.frontier_max_dim()}, "
-                         f"cap <= {lib.frontier_max_cap()} and N >= 1; "
-                         f"got dim={dim}, cap={cap}, N={N}")
+    if dim > lib.frontier_max_dim() or N < 1:
+        raise ValueError(f"frontier kernel takes dim <= {lib.frontier_max_dim()} "
+                         f"and N >= 1; got dim={dim}, N={N}")
     outs = tuple(torch.empty((b, w, cap), dtype=torch.float32, device=dev)
                  for _ in range(4))
     if b * w == 0:

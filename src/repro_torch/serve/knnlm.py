@@ -13,9 +13,10 @@ Delete to drop stale entries online.  Retrieval is the port's cohort
 descent (``SMTreeEngine.knn``), whose frontier scorer is the CUDA kernel
 on the card; keys are hidden states, so rows are ``d_model`` wide.
 
-Not ported yet: the streaming write pipeline, the serving front-end and
-replication (``enable_stream``, ``enable_frontend``,
-``enable_replication``; ROADMAP Queue 1 items 10-11), and the mesh.
+Not ported yet (ROADMAP Queue 1 item 13, each raise naming its part):
+the streaming write pipeline (``enable_stream``, 13.1), the serving
+front-end and replication (``enable_frontend``, ``enable_replication``,
+13.2) and the mesh (13.4).
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ from repro_torch.core.engine import SMTreeEngine
 from repro_torch.core.smtree import resolve_device
 from repro_torch.models import model as M
 
-_STREAM = "not ported yet (ROADMAP Queue 1 item 10/11)"
+
+def _not_ported(what: str, part: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item 13.{part})")
 
 
 @dataclasses.dataclass
@@ -50,7 +53,7 @@ class KnnLmDatastore:
 
     def __init__(self, cfg: KnnLmConfig, dim: int, mesh=None, *, device=None):
         if mesh is not None:
-            raise NotImplementedError(f"a mesh-sharded datastore is {_STREAM}")
+            raise _not_ported("a mesh-sharded datastore", 4)
         self.cfg = cfg
         self.dim = dim
         self.device = resolve_device(device)
@@ -87,13 +90,13 @@ class KnnLmDatastore:
         return sum(self.evict(oid) for oid in range(oid_bound))
 
     def enable_stream(self, *args, **kw):
-        raise NotImplementedError(f"the streaming write pipeline is {_STREAM}")
+        raise _not_ported("the streaming write pipeline", 1)
 
     def enable_frontend(self, **kw):
-        raise NotImplementedError(f"the serving front-end is {_STREAM}")
+        raise _not_ported("the serving front-end", 2)
 
     def enable_replication(self, *args, **kw):
-        raise NotImplementedError(f"replication is {_STREAM}")
+        raise _not_ported("replication", 2)
 
     def _append_history(self, keys: np.ndarray, values: np.ndarray) -> None:
         """Amortised-O(1) append to the oid-indexed key/value history

@@ -22,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 TINY = dict(n=3000, dims=6, capacity=8, b_bench=16, b_exact=8, b_parity=8,
             b_recheck=8, n_small=1000, kernel_b=8, kernel_F=8, kernel_N=50,
-            dist_nq=16, dist_ne=64, n_insert=40, timing_reps=2)
+            dist_nq=16, dist_ne=64, dist_path_nq=8, dist_path_ne=200, n_insert=40,
+            timing_reps=2)
 LM_TINY = dict(
     arch="qwen2.5-3b", smoke=True, prefill_b=2, prefill_s=16,
     serve_argv=["--knn", "--batch", "2", "--prompt-len", "4", "--steps", "3"],
@@ -37,7 +38,7 @@ KEYS = {"name", "route", "source", "replaces", "launches", "launches_per_pass",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
 
-def _rehearse(call: str, keep: str | None = None):
+def _rehearse(call: str, keep: tuple = ()):
     code = textwrap.dedent(f"""
         import json, sys
         sys.modules["jax"] = None
@@ -52,14 +53,13 @@ def _rehearse(call: str, keep: str | None = None):
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
     rows = json.loads(proc.stdout.split("RESULT ", 1)[1])
-    if keep is not None:
-        return [ln["phase"] for ln in lines], rows, next(ln for ln in lines
-                                                        if ln["phase"] == keep)
-    return [ln["phase"] for ln in lines], rows
+    kept = [next(ln for ln in lines if ln["phase"] == k) for k in keep]
+    return ([ln["phase"] for ln in lines], rows, *kept)
 
 
 def test_index_slice_rehearses_on_the_cpu():
-    phases, rows, replay = _rehearse(f"run({TINY!r}, 'cpu')", keep="frontier_replay_index")
+    phases, rows, replay, dist = _rehearse(f"run({TINY!r}, 'cpu')",
+                                           keep=("frontier_replay_index", "kernel_distance"))
     assert phases == ["kernel_frontier", "kernel_distance", "build_tree",
                       "knn_bench_geometry", "knn_exact_geometry", "range_search",
                       "insert_delete", "frontier_replay_index", "descent_kernel_vs_plain"]
@@ -77,8 +77,18 @@ def test_index_slice_rehearses_on_the_cpu():
         assert total["live_evals"] == sum(lv["live_evals"] for lv in levels) > 0
     assert [r["name"] for r in rows] == ["frontier_scores", "frontier_scores[parent_prune]",
                                          "pairwise_distance"]
-    for r in rows:
+    for r in rows[:2]:
         assert set(r) == KEYS and r["route"] == "cuda"
+    # the scan at the index path's shape, with its synthetic-shape row beside it
+    scan = rows[2]
+    assert set(scan) == KEYS | {"device_ms", "shape", "synthetic"}
+    assert scan["shape"] == dict(nq=TINY["dist_path_nq"], ne=TINY["dist_path_ne"],
+                                 d=TINY["dims"])
+    assert scan["device_ms"] is None                 # measured on the card only
+    assert scan["synthetic"]["nq"] == TINY["dist_nq"] and scan["synthetic"]["bound_ms"] > 0
+    assert set(dist["results"]) == {f"{s}/{m}" for s in ("path", "synthetic")
+                                    for m in ("d_inf", "sqeuclidean", "ip")}
+    assert all(r["bound_by"] == "bytes" for r in dist["results"].values())
 
 
 def test_lm_slice_rehearses_on_the_cpu():
@@ -93,6 +103,7 @@ def test_lm_slice_rehearses_on_the_cpu():
     assert [r["replaces"].rsplit(":", 1)[1] for r in rows] == ["109", "121", "62", "38"]
     for r in rows:
         extra = {"f32_cuda_core_bound_ms"} if r["name"] == "flash_attention_fwd" else set()
+        extra |= {"device_ms"} if r["name"] == "pairwise_distance_prune" else set()
         assert set(r) == KEYS | extra and r["route"] == "cuda"
         assert (ROOT / r["source"]).exists()
 

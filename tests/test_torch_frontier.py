@@ -123,3 +123,42 @@ def test_unknown_metric_raises():
     args, _ = _inputs(6)
     with pytest.raises(KeyError):
         frontier_scores(*(torch.from_numpy(a) for a in args), metric="cosine")
+
+
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("cap", [65, 97, 128])
+def test_pages_wider_than_64_entries(metric, prune, cap):
+    """Pages above 64 entries, which the CUDA kernel scores as segments of
+    at most 64: the plain version the kernel is held to, against both JAX
+    paths."""
+    args, filt = _inputs(cap + prune, N=9, cap=cap, dim=6, b=5, w=4)
+    port, pal, xla = _both(args, filt if prune else {}, metric)
+    for p, a, x, name in zip(port, pal, xla, OUT_NAMES):
+        assert p.shape == (5, 4, cap)
+        np.testing.assert_array_equal(p, np.asarray(a), err_msg=f"{metric}/{name}/pallas")
+        np.testing.assert_array_equal(p, np.asarray(x), err_msg=f"{metric}/{name}/xla")
+    live = np.isfinite(port[0]) | np.isfinite(port[2])
+    assert live[..., 64:].any()                  # entries past the first segment score
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_knn_on_a_capacity_96_tree_bitwise_vs_jax(metric):
+    """The descent over pages of 96 entries (two segments on the card),
+    bitwise against the JAX package's ``knn``."""
+    from repro.core import smtree as J
+    from repro_torch.core import smtree as T
+    from repro_torch.core.convert import tree_from_numpy
+    from repro_torch.data.datagen import clustered, uniform
+    X = clustered(2000, dims=6, seed=8)
+    jt = J.bulk_build(X, capacity=96, metric=metric)
+    tt = tree_from_numpy({f: np.asarray(getattr(jt, f)) for f in T.ARRAY_FIELDS},
+                         {f: getattr(jt, f) for f in T.META_FIELDS}, "cpu")
+    assert tt.vecs.shape[1] == 96 and int(tt.height) >= 2
+    Q = np.vstack([uniform(6, dims=6, seed=9), X[:6] + 0.003]).astype(np.float32)
+    for k, F in ((1, 64), (8, 128)):
+        jr = J.knn(jt, Q, k=k, max_frontier=F, impl="xla")
+        tr = T.knn(tt, Q, k=k, max_frontier=F)
+        for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
+            np.testing.assert_array_equal(getattr(tr, f).numpy(), np.asarray(getattr(jr, f)),
+                                          err_msg=f"{metric} k={k} F={F} {f}")

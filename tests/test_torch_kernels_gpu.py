@@ -233,12 +233,33 @@ def test_frontier_wrapper_checks_and_counts(cuda):
                         metric="d_inf")
     with pytest.raises(ValueError):
         frontier_scores(fids, q.cpu(), vecs, radius, iv, lv, metric="d_inf")
-    wide = torch.zeros((5, 65, 4), device=cuda)       # cap above 64
-    r65 = torch.zeros((5, 65), device=cuda)
-    v65 = torch.zeros((5, 65), dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError):
-        frontier_scores(fids, q, wide, r65, v65, v65, metric="d_inf")
     assert frontier_scores.launches == before + 1
+    wide = _pages(rng, cuda, 5, 65, 4)                 # cap above 64: one launch
+    _wide_launch_matches_plain(fids, q, *wide, "d_inf", {})
+    assert frontier_scores.launches == before + 2
+
+
+@pytest.mark.parametrize("prune", [False, True])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dim", [20, 2048])
+@pytest.mark.parametrize("cap", [65, 96, 97, 128, 257])
+def test_frontier_pages_wider_than_64_entries(cuda, metric, prune, cap, dim):
+    """Pages above 64 entries (scored as segments of at most 64), narrow
+    and wide rows: bitwise, one launch, live entries in the last segment."""
+    rng = np.random.default_rng(cap * 10 + dim + prune)
+    N, b, w = 7, 9, 5
+    vecs, radius, iv, lv, queries, filt = _narrow_case(rng, cuda, N, cap, dim, b, w)
+    if dim > 128:                                # the filter's scale at wide rows
+        scale = {"d_inf": 4.0, "l2": (2.0 * dim) ** 0.5, "l1": 1.128 * dim}[metric]
+        filt = {k: v * scale for k, v in filt.items()}
+    fids = torch.from_numpy(rng.integers(-1, N, (b, w)).astype(np.int32)).to(cuda)
+    fids[0, 0] = N - 1
+    before = frontier_scores.launches
+    want = _wide_launch_matches_plain(fids, queries, vecs, radius, iv, lv, metric,
+                                      filt if prune else {})
+    assert frontier_scores.launches == before + 1
+    live = torch.isfinite(want[0]) | torch.isfinite(want[2])
+    assert bool(live[..., 64 * ((cap - 1) // 64):].any())
 
 
 @pytest.mark.parametrize("metric", ["d_inf", "sqeuclidean", "ip"])
@@ -256,6 +277,78 @@ def test_distance_kernel_matches_plain(cuda, metric, nq, ne, d):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _dist_inputs(rng, dev, nq, ne, d, *, offset=False):
+    """Uniform [0, 1) rows; with ``offset`` as views that start one float
+    past the allocation (4 bytes past a 16-byte boundary)."""
+    def rows(n):
+        flat = torch.from_numpy(rng.random(n * d + offset, np.float32)).to(dev)
+        return flat[int(offset):].view(n, d)
+    return rows(nq), rows(ne)
+
+
+def _dist_matches_plain(q, e, metric):
+    before = pairwise_distance.launches
+    got = pairwise_distance(q, e, metric)
+    want = pairwise_distance_torch(q, e, metric)
+    assert pairwise_distance.launches == before + 1
+    if metric == "d_inf":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# the distance kernel's tiles are 64 queries x 256 entries, its stages 32
+# dimensions wide: shapes one either side of those edges and below them
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("metric", ["d_inf", "sqeuclidean", "ip"])
+@pytest.mark.parametrize("d", [1, 3, 20, 21, 33, 96, 128, 257])
+def test_distance_kernel_ragged_shapes(cuda, metric, d, offset):
+    rng = np.random.default_rng(d * 2 + offset)
+    for nq, ne in ((65, 257), (63, 255), (7, 1030)):
+        q, e = _dist_inputs(rng, cuda, nq, ne, d, offset=offset)
+        if offset:
+            assert q.data_ptr() % 16 == 4 and e.data_ptr() % 16 == 4
+        _dist_matches_plain(q, e, metric)
+
+
+@pytest.mark.parametrize("metric", ["d_inf", "sqeuclidean", "ip"])
+@pytest.mark.parametrize("nq,ne,d", [(1, 1, 20), (1, 1, 3), (1, 5000, 20), (3000, 1, 20),
+                                     (300, 70_001, 20), (1024, 65_536, 20)])
+def test_distance_kernel_single_rows_and_many_tiles(cuda, metric, nq, ne, d):
+    """nq = 1 and ne = 1, and shapes with more tiles than the persistent
+    blocks (each block walks several; 70,001 leaves a ragged last tile and
+    rows whose length is not a multiple of 4)."""
+    q, e = _dist_inputs(np.random.default_rng(nq + ne), cuda, nq, ne, d)
+    _dist_matches_plain(q, e, metric)
+
+
+def test_distance_kernel_at_the_index_paths_shape(cuda):
+    """The scan behind brute_force_knn on the index path: 256 x 1,000,000 x 20."""
+    q, e = _dist_inputs(np.random.default_rng(256), cuda, 256, 1_000_000, 20)
+    _dist_matches_plain(q, e, "d_inf")
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("metric", ["d_inf", "sqeuclidean", "ip"])
+@pytest.mark.parametrize("nq,ne,d", [(65, 257, 1), (63, 1030, 21), (1, 1, 20), (130, 7, 33),
+                                     (300, 70_001, 20), (7, 300, 257)])
+def test_distance_prune_kernel_ragged_shapes(cuda, metric, nq, ne, d, offset):
+    rng = np.random.default_rng(nq * 7 + ne + d + offset)
+    q, e = _dist_inputs(rng, cuda, nq, ne, d, offset=offset)
+    lo, hi = {"ip": (-0.2 * d, -0.05 * d), "sqeuclidean": (0.1 * d ** 0.5, 0.35 * d ** 0.5),
+              "d_inf": (0.0, 0.6)}[metric]
+    r_q = torch.from_numpy(rng.uniform(lo, hi, nq).astype(np.float32)).to(cuda)
+    r_e = torch.from_numpy(rng.uniform(lo, hi, ne).astype(np.float32)).to(cuda)
+    before = pairwise_distance_prune.launches
+    gd, gm = pairwise_distance_prune(q, e, r_q, r_e, metric)
+    wd, wm = pairwise_distance_prune_torch(q, e, r_q, r_e, metric)
+    assert pairwise_distance_prune.launches == before + 1
+    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
+    true_d = wd.clamp_min(0).double().sqrt() if metric == "sqeuclidean" else wd.double()
+    decided = (true_d - (r_q[:, None] + r_e[None, :]).double()).abs() > 1e-6
+    assert torch.equal(gm[decided], wm[decided])
 
 
 def test_descent_kernel_path_matches_plain_path(cuda):

@@ -143,10 +143,11 @@ def test_add_batch_and_evict_batch_match_jax():
 
 def test_unported_store_features_raise():
     _, ts, _ = _stores("l2", n=100)
-    for call in (ts.enable_stream, ts.enable_frontend, ts.enable_replication):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    for call, part in ((ts.enable_stream, 1), (ts.enable_frontend, 2),
+                       (ts.enable_replication, 2)):
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item 13\.{part}\)"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 13\.4\)"):
         knnlm.KnnLmDatastore(knnlm.KnnLmConfig(), 8, mesh=object(), device="cpu")
 
 

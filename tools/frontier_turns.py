@@ -51,26 +51,36 @@ ROOT = Path(__file__).resolve().parents[1]
 DIMS = (2048, 896, 1023, 3072, 4096)
 
 
-def build(baselines: dict[str, Path]) -> dict:
-    """Each baseline source built with the port's flags, one nvcc each, in
-    parallel; returns name -> launcher with ``frontier_scores``' call."""
-    import torch
-
+def build_libs(source: str, baselines: dict[str, Path]) -> dict:
+    """Each baseline revision of ``csrc/<source>.cu`` built with the port's
+    flags for that source, one nvcc each, in parallel; returns name ->
+    (loaded library, nvcc's output with its ``-Xptxas -v`` lines)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.frontier import _METRIC_CODES, _declare
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in baselines.items():
-        so = _build.BUILD_DIR / f"turns-{name}.so"
-        cmd = [_build._nvcc(), *_build.flags("frontier"), "-o", str(so), str(src)]
+        so = _build.BUILD_DIR / f"turns-{source}-{name}.so"
+        cmd = [_build._nvcc(), *_build.flags(source), "-o", str(so), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), so)
-    fns = {}
+    libs = {}
     for name, (proc, so) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {baselines[name]} failed:\n{out[-3000:]}")
-        lib = _declare(ctypes.CDLL(str(so)))
+        libs[name] = (ctypes.CDLL(str(so)), out)
+    return libs
+
+
+def build(baselines: dict[str, Path]) -> dict:
+    """Each baseline ``frontier.cu`` built (``build_libs``); returns name ->
+    launcher with ``frontier_scores``' call."""
+    import torch
+
+    from repro_torch.kernels.frontier import _METRIC_CODES, _declare
+    fns = {}
+    for name, (lib, _) in build_libs("frontier", baselines).items():
+        lib = _declare(lib)
 
         def call(fids, queries, vecs, radius, iv, lv, *, metric, pdist=None, qpd=None,
                  rq=None, lib=lib):
