@@ -39,6 +39,33 @@ The index slice (``run``):
      through the plain scorer, bitwise (all five result fields and the
      level-stat stacks), on the d_inf tree and on 100k-object l2/l1 trees.
 
+The SM-forest pass (``run_forest``), launch counters zeroed just before
+and read just after, so that the index slice's counts stay comparable:
+
+  F1. forest_build: the same 1,000,000 objects round robin over 8 shards,
+      capacity 32, stacked on the card: seconds, each shard's height and
+      node count, device bytes;
+  F2. forest_knn_bench / forest_knn_exact: ``forest_knn`` (each shard's
+      cohort descent through the narrow kernel, then the k-way merge) at
+      the bench geometry and at the smallest exact max_frontier, each held
+      bitwise against the same forest through the plain scorer (and every
+      shard's five fields at the bench geometry); the exact result held
+      against the sharded scan (the group form of ``brute_force_knn``
+      with its 8 ranks' slices scanned one after another on the card,
+      itself equal to the one-device scan); ms per cohort, the scan's ms,
+      and the device time by kernel (torch.profiler);
+  F3. forest_perquery: the per-query engine on shard 0 at both geometries
+      with both engines' ms, held against the cohort engine at the exact
+      geometry (dists on rows neither overflowed, ids where a row's
+      distances are distinct; at the bench geometry every row of both
+      engines overflows, so there it is timed only);
+  F4. forest_mutations: 2,048 inserts of new ids and 2,048 deletes, owner
+      routed, through ``forest_apply_mutations``, statuses and every
+      field bitwise against the same log one row at a time through
+      ``insert_fast``/``delete_fast``; ``forest_extract_objects`` of 256
+      live ids against their stored rows; the exact kNN check again against
+      a scan of the live set; then the pass's launch counts.
+
 The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
 
   7. kernel_frontier_wide: the frontier scorer's wide-row variant bitwise
@@ -80,14 +107,17 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
-library ms; the distance scan at the index path's shape, with its device
-ms and its synthetic-shape row),
+library ms; the narrow frontier rows and the distance scan count the index
+slice in ``launches`` and each pass apart in ``launches_by_path``
+(``index``, ``forest``); the distance scan at the index path's shape, with its
+device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
 result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -102,6 +132,11 @@ FULL = dict(n=1_000_000, dims=20, capacity=32, b_bench=1024, b_exact=256,
             kernel_F=64, kernel_N=50_000, dist_nq=1024, dist_ne=65_536,
             dist_path_nq=256, dist_path_ne=1_000_000,
             n_insert=300, timing_reps=5)
+# the SM-forest: the index slice's set round robin over 8 shards
+FOREST_FULL = dict(n=1_000_000, dims=20, capacity=32, n_shards=8, b_bench=1024,
+                   b_exact=256, exact_fs=(512, 1024, 2048, 4096, 8192, 16384),
+                   n_insert=2048, n_delete=2048, n_extract=256, b_recheck=64,
+                   timing_reps=5)
 # the kNN-LM serving slice: qwen2.5-3b at full width (all 36 layers), f32
 LM_FULL = dict(
     arch="qwen2.5-3b", smoke=False, prefill_b=4, prefill_s=2048,
@@ -735,6 +770,275 @@ def run(cfg: dict, device: str):
     return kernels
 
 
+def run_forest(cfg: dict, device: str):
+    """The SM-forest (the main path's third step): the 1M-object set round
+    robin over ``n_shards`` shards, its kNN through the kernels held against
+    the plain scorer and the sharded scan, the per-query engine against the
+    cohort engine on one shard, and an owner-routed mutation cohort held
+    against the same log applied one row at a time.  Its launch counts are
+    zeroed just before and read just after (a pass of its own, so the index
+    slice's counts stay comparable).  Returns the pass's launch counts and
+    the per-call counts of ``forest_knn`` and of the sharded scan."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as fd
+    from repro_torch.core import smtree
+    from repro_torch.data.datagen import clustered
+    from repro_torch.kernels.distance import pairwise_distance
+    from repro_torch.kernels.frontier import frontier_scores, frontier_scores_torch
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    _, _, wall = timers(on_card)
+    S, dim, cap, n = cfg["n_shards"], cfg["dims"], cfg["capacity"], cfg["n"]
+
+    def launch_counts():
+        return dict(frontier=frontier_scores.launches - frontier_scores.pruned_launches,
+                    frontier_pruned=frontier_scores.pruned_launches,
+                    distance=pairwise_distance.launches)
+
+    def per_call(fn):
+        c0 = launch_counts()
+        out = fn()
+        return out, {k: v - c0[k] for k, v in launch_counts().items()}
+
+    def sliced_scan(Xd, Q, k):
+        """The group form of ``brute_force_knn`` with its S ranks run one
+        after another on this card: each rank's contiguous slice scanned
+        and cut to its k best, then the k-way merge of the candidates."""
+        size = Xd.shape[0] // S
+        parts = [fd._scan_topk(Xd[r * size:(r + 1) * size], Q, k, "d_inf")
+                 for r in range(S)]
+        return fd._merge_topk(
+            torch.stack([d for d, _ in parts]),
+            torch.stack([i + r * size for r, (_, i) in enumerate(parts)]), k)
+
+    def any_overflow(forest, Q, Fx):
+        """Per query: did any shard's descent truncate its frontier (the
+        forest's result is exact where none did)."""
+        return torch.stack([smtree.knn(t, Q, k=K, max_frontier=Fx).overflow
+                            for t in fd.unstack_forest(forest)]).any(0)
+
+    def check_exact(d, i, ovf, sd, si, ids_of, what):
+        ok = ~ovf
+        check(bool(ok.any()), f"{what}: every row overflowed")
+        check(torch.equal(d[ok], sd[ok, :K]), f"{what}: dists differ from the scan")
+        distinct = ok & (sd[:, K - 1] != sd[:, K])
+        got = torch.sort(i[distinct].long(), 1).values
+        want = torch.sort(ids_of(si[distinct, :K]), 1).values
+        check(torch.equal(got, want),
+              f"{what}: ids differ from the scan where the k-th distance is unique")
+        return int(ok.sum()), int(distinct.sum())
+
+    # the forest pass: launch counts zeroed here and read at its end
+    frontier_scores.launches = 0
+    frontier_scores.pruned_launches = 0
+    pairwise_distance.launches = 0
+
+    # ---------------------------------------------------------------- build
+    X = clustered(n, dims=dim, seed=0)
+    forest, build_s = wall(lambda: fd.build_forest(X, S, capacity=cap, metric="d_inf",
+                                                   device=device))
+    height = fd.common_static_height(forest)
+    nbytes = sum(getattr(forest, f).numel() * getattr(forest, f).element_size()
+                 for f in smtree.ARRAY_FIELDS)
+    emit("forest_build", n=n, dims=dim, capacity=cap, n_shards=S, seconds=build_s,
+         heights=forest.height.tolist(), common_height=height,
+         n_nodes=forest.n_nodes.tolist(), max_nodes=forest.max_nodes,
+         device_bytes=nbytes)
+    check(height is not None, "round-robin shards of one size differ in height")
+    Xd = torch.from_numpy(X).to(dev)
+    qrng = np.random.default_rng(11)
+
+    def noisy_queries(m):
+        rows = qrng.integers(0, n, m)
+        return torch.from_numpy((X[rows] + qrng.normal(0, 0.01, (m, dim)))
+                                .astype(np.float32)).to(dev)
+
+    # ---------------------------------------------------------------- knn
+    Qa = noisy_queries(cfg["b_bench"])
+    (da, ia), knn_launches = per_call(
+        lambda: fd.forest_knn(forest, Qa, k=K, max_frontier=BENCH_F))
+    bench_times = [wall(lambda: fd.forest_knn(forest, Qa, k=K, max_frontier=BENCH_F))[1]
+                   * 1e3 for _ in range(cfg["timing_reps"])]
+    # the same forest through the plain scorer: the forest's outputs and
+    # every shard's five result fields bitwise
+    dp, ip = fd.forest_knn(forest, Qa, k=K, max_frontier=BENCH_F,
+                           _scorer=frontier_scores_torch)
+    check(torch.equal(da, dp) and torch.equal(ia, ip),
+          "forest_knn: kernel and plain paths differ")
+    for s, t in enumerate(fd.unstack_forest(forest)):
+        kw = dict(k=K, F=BENCH_F, height=height)
+        a = smtree._knn_cohort(t, Qa, float("inf"), **kw)
+        p = smtree._knn_cohort(t, Qa, float("inf"), scorer=frontier_scores_torch, **kw)
+        for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
+            check(torch.equal(getattr(a, f), getattr(p, f)),
+                  f"shard {s}: kernel and plain descents differ in {f}")
+    ovf_a = any_overflow(forest, Qa, BENCH_F)
+    emit("forest_knn_bench", b=cfg["b_bench"], k=K, max_frontier=BENCH_F,
+         ms_per_cohort=bench_times, launches_per_call=knn_launches,
+         kernel_vs_plain_bitwise=True, overflow_share=float(ovf_a.float().mean()))
+
+    Qb = noisy_queries(cfg["b_exact"])
+    tried = {}
+    for Fx in cfg["exact_fs"]:
+        tried[Fx] = float(any_overflow(forest, Qb, Fx).float().mean())
+        if tried[Fx] == 0.0:
+            break
+    F_exact = Fx
+    db, ib = fd.forest_knn(forest, Qb, k=K, max_frontier=F_exact)
+    exact_times = [wall(lambda: fd.forest_knn(forest, Qb, k=K, max_frontier=F_exact))[1]
+                   * 1e3 for _ in range(cfg["timing_reps"])]
+    dq, iq = fd.forest_knn(forest, Qb, k=K, max_frontier=F_exact,
+                           _scorer=frontier_scores_torch)
+    check(torch.equal(db, dq) and torch.equal(ib, iq),
+          "forest_knn exact: kernel and plain paths differ")
+    (sd, si), scan_launches = per_call(lambda: sliced_scan(Xd, Qb, K + 1))
+    sd1, si1 = fd.brute_force_knn(Xd, Qb, k=K + 1, device=device)
+    check(torch.equal(sd, sd1) and torch.equal(si, si1),
+          "the sharded scan differs from the one-device scan")
+    n_ok, n_ids = check_exact(db, ib, any_overflow(forest, Qb, F_exact), sd, si,
+                              lambda i: i, "forest_knn exact")
+    scan_times = [wall(lambda: sliced_scan(Xd, Qb, K + 1))[1] * 1e3
+                  for _ in range(cfg["timing_reps"])]
+    prof_rows = {}
+    if on_card:
+        from torch.autograd import DeviceType
+        for label, Q, Fx, wall_ms in (("bench", Qa, BENCH_F, bench_times),
+                                      ("exact", Qb, F_exact, exact_times)):
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                fd.forest_knn(forest, Q, k=K, max_frontier=Fx)
+                torch.cuda.synchronize()
+            kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+            kern.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+            busy = sum(ev.self_device_time_total for ev in kern) / 1e3
+            med = float(np.median(wall_ms))
+            prof_rows[label] = dict(
+                wall_ms_median=med, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1.0 - busy / med),
+                kernels=[dict(name=ev.key[:72], ms=ev.self_device_time_total / 1e3,
+                              calls=ev.count) for ev in kern[:10]])
+    emit("forest_knn_exact", b=cfg["b_exact"], k=K, overflow_share_by_F=tried,
+         max_frontier=F_exact, no_overflow=tried[F_exact] == 0.0,
+         ms_per_cohort=exact_times, kernel_vs_plain_bitwise=True,
+         rows_checked_bitwise=n_ok, rows_ids_checked=n_ids,
+         sharded_scan=dict(n_shards=S, ms=scan_times, launches_per_call=scan_launches,
+                           equals_one_device_scan=True),
+         profile=prof_rows)
+
+    # ---------------------------------------------------------------- perquery
+    t0 = fd.unstack_forest(forest)[0]
+    pq_rows = {}
+    for label, Q, Fx in (("bench", Qa, BENCH_F), ("exact", Qb, F_exact)):
+        pq, pq_s = wall(lambda: smtree._knn_perquery(t0, Q, K, Fx, float("inf")))
+        co, co_s = wall(lambda: smtree._knn_cohort(t0, Q, float("inf"), k=K, F=Fx,
+                                                   height=height))
+        pq_rows[label] = dict(
+            b=Q.shape[0], max_frontier=Fx, ms=pq_s * 1e3, cohort_ms=co_s * 1e3,
+            overflow_share=float(pq.overflow.float().mean()),
+            cohort_overflow_share=float(co.overflow.float().mean()),
+            dist_evals_per_query=float(pq.dist_evals.float().mean()),
+            page_hits_per_query=float(pq.page_hits.float().mean()))
+        if label == "bench":
+            continue
+        ok = ~(pq.overflow | co.overflow)
+        check(bool(ok.any()), f"per-query {label}: every row overflowed")
+        check(torch.equal(pq.dists[ok], co.dists[ok]),
+              f"per-query {label}: dists differ from the cohort engine")
+        # ids where a row's k distances are distinct (ties may pick either)
+        untied = ok & (pq.dists[:, 1:] != pq.dists[:, :-1]).all(1)
+        check(bool(untied.any()), f"per-query {label}: no row with distinct distances")
+        check(torch.equal(pq.ids[untied], co.ids[untied]),
+              f"per-query {label}: ids differ from the cohort engine")
+        pq_rows[label].update(rows_checked=int(ok.sum()),
+                              rows_ids_checked=int(untied.sum()))
+    emit("forest_perquery", shard=0, k=K, results=pq_rows)
+
+    # ---------------------------------------------------------------- mutations
+    mrng = np.random.default_rng(12)
+    n_ins, n_del = cfg["n_insert"], cfg["n_delete"]
+    new_ids = np.arange(n, n + n_ins)
+    ins_x = np.clip(X[mrng.integers(0, n, n_ins)] + mrng.normal(0, 0.01, (n_ins, dim)),
+                    0, 1).astype(np.float32)
+    victims = mrng.choice(n, n_del, replace=False)
+    order = mrng.permutation(n_ins + n_del)
+    ops = np.concatenate([np.full(n_ins, smtree.OP_INSERT),
+                          np.full(n_del, smtree.OP_DELETE)])[order].astype(np.int32)
+    oids = np.concatenate([new_ids, victims])[order].astype(np.int32)
+    xs = np.vstack([ins_x, X[victims]])[order]
+    owner = (oids % S).astype(np.int32)
+    replay = dataclasses.replace(forest, **{f: getattr(forest, f).clone()
+                                            for f in smtree.ARRAY_FIELDS})
+    (_, st), mut_s = wall(lambda: fd.forest_apply_mutations(
+        forest, ops, xs, oids, owner, validate=True))
+    st = st.cpu().numpy()
+    # the same log one row at a time through the fast paths, on the owner
+    shards = fd.unstack_forest(replay)
+    xs_d = torch.from_numpy(xs).to(dev)
+    want = np.zeros_like(st)
+    t1 = time.perf_counter()
+    for r in range(len(ops)):
+        t = shards[owner[r]]
+        if ops[r] == smtree.OP_INSERT:
+            _, fits, _ = smtree.insert_fast(t, xs_d[r], int(oids[r]))
+            want[r] = smtree.ST_APPLIED if fits else smtree.ST_OVERFLOW
+        else:
+            _, found, under, _ = smtree.delete_fast(t, xs_d[r], int(oids[r]))
+            want[r] = (smtree.ST_NOTFOUND if not found else
+                       smtree.ST_UNDERFLOW if under else smtree.ST_APPLIED)
+    one_s = time.perf_counter() - t1
+    check(np.array_equal(st, want), "cohort statuses differ from the one-row replay")
+    for f in smtree.ARRAY_FIELDS:
+        check(torch.equal(getattr(forest, f), getattr(replay, f)),
+              f"forest field {f} differs from the one-row replay")
+    del replay, shards
+    applied = st == smtree.ST_APPLIED
+    escalations = int(((st == smtree.ST_OVERFLOW) | (st == smtree.ST_UNDERFLOW)).sum())
+    # the stored rows of live ids, owner-routed
+    gone = set(oids[applied & (ops == smtree.OP_DELETE)].tolist())
+    placed = oids[applied & (ops == smtree.OP_INSERT)]
+    live_old = np.array([o for o in mrng.choice(n, 2 * cfg["n_extract"], replace=False)
+                         if o not in gone][:cfg["n_extract"] // 2])
+    ex_ids = np.concatenate([live_old, placed[:cfg["n_extract"] - len(live_old)]])
+    vec_of = dict(zip(new_ids.tolist(), ins_x))
+    ex_want = np.stack([X[o] if o < n else vec_of[o] for o in ex_ids.tolist()])
+    (ev, ef), ex_s = wall(lambda: fd.forest_extract_objects(forest, ex_ids, ex_ids % S))
+    check(bool(ef.all()), "forest_extract_objects missed a live id")
+    check(torch.equal(ev, torch.from_numpy(ex_want).to(dev)),
+          "forest_extract_objects differs from the stored rows")
+    # the exact forest kNN again, against a scan of the live set
+    keep = np.ones(n, bool)
+    keep[sorted(gone)] = False
+    live_ids = torch.from_numpy(np.concatenate([np.nonzero(keep)[0], placed])).to(dev)
+    Xlive = torch.from_numpy(np.vstack([X[keep], np.stack([vec_of[o] for o in
+                                                           placed.tolist()])])).to(dev)
+    Qr = torch.cat([Qb[:cfg["b_recheck"] // 2],
+                    torch.from_numpy(ins_x[:cfg["b_recheck"] // 2]).to(dev)])
+    dr, ir = fd.forest_knn(forest, Qr, k=K, max_frontier=F_exact)
+    sd, si = fd.brute_force_knn(Xlive, Qr, k=K + 1, device=device)
+    n_ok, n_ids = check_exact(dr, ir, any_overflow(forest, Qr, F_exact), sd, si,
+                              lambda i: live_ids[i], "forest_knn after mutations")
+    emit("forest_mutations", inserts=n_ins, deletes=n_del, seconds=mut_s,
+         ms_per_row=mut_s * 1e3 / len(ops), one_row_replay_seconds=one_s,
+         statuses={name: int((st == code).sum()) for name, code in (
+             ("applied", smtree.ST_APPLIED), ("overflow", smtree.ST_OVERFLOW),
+             ("underflow", smtree.ST_UNDERFLOW), ("notfound", smtree.ST_NOTFOUND))},
+         escalation_rows_left=escalations, replay_bitwise=True,
+         extract=dict(ids=len(ex_ids), seconds=ex_s, bitwise=True),
+         recheck_rows_bitwise=n_ok, recheck_rows_ids=n_ids,
+         n_objects=int(sum(t.n_objects for t in fd.unstack_forest(forest))))
+
+    launches = launch_counts()
+    emit("forest_path_launches", **launches)
+    if on_card:
+        for name, c in launches.items():
+            check(c > 0, f"kernel {name} never launched on the forest path")
+    return dict(launches=launches, knn=knn_launches, scan=scan_launches)
+
+
 def run_lm(cfg: dict, device: str):
     """The kNN-LM serving slice: its kernels against their plain versions
     (outside the launch counts), then its main path with the counts zeroed
@@ -1138,6 +1442,25 @@ def run_lm(cfg: dict, device: str):
     ]
 
 
+def with_forest(index_rows: list, forest: dict) -> list:
+    """The index slice's rows with the forest pass added: ``launches``
+    stays the index path's count, ``launches_by_path`` gives both passes,
+    and the per-call counts of ``forest_knn`` and of the sharded scan join
+    ``launches_per_pass``."""
+    names = ("frontier", "frontier_pruned", "distance")
+    per_pass = ({"forest_knn": forest["knn"]["frontier"]},
+                {"forest_knn": forest["knn"]["frontier_pruned"]},
+                {"brute_force_knn_sharded": forest["scan"]["distance"]})
+    out = []
+    for row, name, extra in zip(index_rows, names, per_pass):
+        row = dict(row)
+        by_path = {"index": row["launches"], "forest": forest["launches"][name]}
+        row.update(launches_by_path=by_path,
+                   launches_per_pass={**row["launches_per_pass"], **extra})
+        out.append(row)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1146,8 +1469,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     index_rows = run(FULL, "cuda")
     torch.cuda.empty_cache()
+    forest = run_forest(FOREST_FULL, "cuda")
+    torch.cuda.empty_cache()
     wide, wide_pruned, prune, flash = run_lm(LM_FULL, "cuda")
-    kernels = index_rows[:2] + [wide, wide_pruned, index_rows[2], prune, flash]
+    narrow, narrow_pruned, scan = with_forest(index_rows, forest)
+    kernels = [narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,38 +1,193 @@
-"""Flat-scan baseline of the SM-forest, on one device.
+"""The SM-forest: the index sharded into independent SM-trees, and the
+flat-scan baseline.
 
-Port of ``repro/core/distributed.py:brute_force_knn`` (the paper's
-"sequential scan" line and the oracle the tree is held against).  The
-reference shards the scan over a mesh and merges per-shard top-k with an
-all-gather; here it runs on one device (``device``: None = the card, as
-for ``bulk_build``) through the distance kernel (kernels/distance.py).
-The sharded form waits for the forest port.
+Port of ``repro/core/distributed.py``.  Objects are partitioned over
+``S`` shards, one SM-tree each (a *forest*).  The reference places one
+shard per device of a mesh and runs each front under ``shard_map``; here
+the forest is *stacked* on one device (every field gains a leading
+``[S]`` axis, node tables zero-padded to the largest shard) and each front
+loops over the shards, working on views of the stacked tensors:
+
+  * ``forest_knn``: every shard runs the local kNN over its tree, then the
+    per-shard candidates are merged shard-major and cut to the global
+    top-k (the reference's all-gather and ``lax.top_k``);
+  * ``forest_delete``, ``forest_apply_mutations`` and
+    ``forest_extract_objects``: each row acts on its owner shard only,
+    and the outcome is what the reference's ``psum`` of masked rows gives.
+
+With a ``torch.distributed`` process group, ``forest_knn`` and
+``brute_force_knn`` run one shard per rank instead and all-gather the
+per-shard candidates before the same merge.  The mutation fronts have no
+collective form yet; the forest's split and merge fronts, ``place_forest``
+and ``promote_follower`` wait for ROADMAP Queue 1 items 9 and 10.
+
+Every selection is a stable ascending sort, so equal values come back
+lowest index first, as ``jax.lax.top_k`` gives them.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from repro_torch.core.smtree import resolve_device
+from repro_torch.core import smtree
+from repro_torch.core.smtree import (ARRAY_FIELDS, NODE_TABLE_FIELDS,
+                                     TreeArrays, bulk_build, resolve_device)
 from repro_torch.kernels.distance import pairwise_distance
 
 # distances held at once: [b, chunk] f32 stays under 1 GiB
 _SCAN_ELEMS = 1 << 28
 
 
-def brute_force_knn(X, queries, *, k: int = 8, metric: str = "d_inf",
-                    device=None):
-    """Exact k-NN by a full scan: (dists [b, k] f32, ids [b, k] int64) on
-    ``device`` (None = the card; it raises without one — pass
-    ``device="cpu"`` to scan on the CPU).  ``X`` and ``queries`` (numpy or
-    tensors on any device) are moved there.
+# --------------------------------------------------------------------------
+# Forest state
+# --------------------------------------------------------------------------
+def stack_trees(trees: list[TreeArrays]) -> TreeArrays:
+    """One forest TreeArrays with a leading ``[n_shards]`` axis, every node
+    table padded with zeros to the largest shard's ``max_nodes`` (as
+    ``jnp.pad`` pads).  Padded rows are dead (``alive`` False) and so are
+    never traversed; their ``free_list`` entries are 0, not -1, and are not
+    in the shard's free ring (``free_head`` is unchanged)."""
+    max_nodes = max(t.max_nodes for t in trees)
+    stacked = {}
+    for name in ARRAY_FIELDS:
+        leaves = []
+        for t in trees:
+            leaf = getattr(t, name)
+            if name in NODE_TABLE_FIELDS and t.max_nodes < max_nodes:
+                pad = leaf.new_zeros((max_nodes - t.max_nodes,) + leaf.shape[1:])
+                leaf = torch.cat([leaf, pad])
+            leaves.append(leaf)
+        stacked[name] = torch.stack(leaves)
+    proto = trees[0]
+    return TreeArrays(capacity=proto.capacity, dim=proto.dim,
+                      metric=proto.metric, max_nodes=max_nodes,
+                      min_fill=proto.min_fill, **stacked)
 
-    Equal distances come back lowest index first, as ``jax.lax.top_k``
-    gives them (``torch.topk`` leaves ties unordered, so every selection is
-    a stable sort).  When ``[b, n]`` distances do not fit at once the scan
-    runs over chunks of entries and merges each chunk's top-k in chunk
-    order, which keeps that tie order."""
+
+def unstack_forest(forest: TreeArrays,
+                   max_nodes: list[int] | None = None) -> list[TreeArrays]:
+    """The per-shard trees of a stacked forest (inverse of ``stack_trees``)
+    as *views* of its tensors: a write to a shard (Insert/Delete,
+    ``apply_mutations``) writes the forest.  ``max_nodes`` re-slices each
+    shard's node table to its size before padding."""
+    out = []
+    for s in range(forest.root.shape[0]):
+        n = forest.max_nodes if max_nodes is None else int(max_nodes[s])
+        fields = {}
+        for name in ARRAY_FIELDS:
+            leaf = getattr(forest, name)[s]
+            if name in NODE_TABLE_FIELDS:
+                leaf = leaf[:n]
+            fields[name] = leaf
+        out.append(dataclasses.replace(forest, max_nodes=n, **fields))
+    return out
+
+
+def build_forest_trees(X: np.ndarray, n_shards: int, *, capacity: int = 32,
+                       metric: str = "d_inf", seed: int = 0,
+                       device=None) -> list[TreeArrays]:
+    """Partition X round robin over ``n_shards`` (object i goes to shard
+    i mod S, ids stay global) and bulk-build one SM-tree per shard on
+    ``device`` (None = the card)."""
     device = resolve_device(device)
-    X = torch.as_tensor(X, dtype=torch.float32, device=device)
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    X = np.asarray(X, np.float32)
+    trees = []
+    for s in range(n_shards):
+        idx = np.arange(s, X.shape[0], n_shards)
+        trees.append(bulk_build(X[idx], ids=idx, capacity=capacity,
+                                metric=metric, seed=seed + s, device=device))
+    return trees
+
+
+def build_forest(X: np.ndarray, n_shards: int, *, capacity: int = 32,
+                 metric: str = "d_inf", seed: int = 0,
+                 device=None) -> TreeArrays:
+    """``build_forest_trees``, stacked on one device (None = the card)."""
+    return stack_trees(build_forest_trees(X, n_shards, capacity=capacity,
+                                          metric=metric, seed=seed,
+                                          device=device))
+
+
+def common_static_height(forest: TreeArrays) -> int | None:
+    """The height every shard shares, or None when the shards' heights
+    differ (the cohort descent needs one height; unequal shards fall back
+    to the per-query engine)."""
+    heights = forest.height.reshape(-1).tolist()
+    if heights and all(h == heights[0] for h in heights):
+        return int(heights[0])
+    return None
+
+
+# --------------------------------------------------------------------------
+# Queries
+# --------------------------------------------------------------------------
+def _merge_topk(all_d: torch.Tensor, all_i: torch.Tensor, k: int):
+    """k-way merge of per-shard candidates ``[S, b, k]``: laid out
+    shard-major per query (``[b, S*k]``), then the k smallest by a stable
+    sort, so equal distances keep the lowest shard, then the lowest rank."""
+    S, b, kk = all_d.shape
+    flat_d = all_d.transpose(0, 1).reshape(b, S * kk)
+    flat_i = all_i.transpose(0, 1).reshape(b, S * kk)
+    vals, sel = smtree._smallest(flat_d, k)
+    return vals, flat_i.gather(1, sel)
+
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+def _local_knn(tree: TreeArrays, queries: torch.Tensor, k: int, F: int,
+               height: int | None, prune: bool, scorer):
+    if height is None:
+        return smtree._knn_perquery(tree, queries, k, F, smtree._INF)
+    return smtree._knn_cohort(tree, queries, smtree._INF, k=k, F=F,
+                              height=height, prune=prune, scorer=scorer)
+
+
+def forest_knn(forest: TreeArrays, queries, *, k: int = 8,
+               max_frontier: int = 64, parent_prune: bool | None = None,
+               group=None, _scorer=None):
+    """Global kNN over the forest: (dists [b, k] f32, ids [b, k] int32).
+
+    Each shard runs the cohort descent over its tree when all shards share
+    one height (``common_static_height``), and the per-query engine
+    (``smtree._knn_perquery``) on every shard otherwise, as the reference
+    does; the per-shard results are merged by ``_merge_topk``.
+    ``parent_prune`` is resolved once (None: ``REPRO_PARENT_PRUNE``).
+
+    ``forest`` is a stacked forest on one device, whose shards are
+    searched one after another, or, with a ``torch.distributed`` process
+    group, this rank's own tree: the ranks agree on the common height by
+    an all-gather of heights and all-gather their candidates.  ``_scorer``
+    is private, as in ``smtree.knn``."""
+    prune = smtree._resolve_parent_prune(parent_prune)
+    queries = smtree._as_queries(forest, queries)
+    if group is None:
+        height = common_static_height(forest)
+        res = [_local_knn(t, queries, k, max_frontier, height, prune, _scorer)
+               for t in unstack_forest(forest)]
+        all_d = torch.stack([r.dists for r in res])
+        all_i = torch.stack([r.ids for r in res])
+    else:
+        heights = _all_gather(forest.height.reshape(1), group).reshape(-1)
+        height = (int(heights[0]) if bool((heights == heights[0]).all())
+                  else None)
+        r = _local_knn(forest, queries, k, max_frontier, height, prune,
+                       _scorer)
+        all_d, all_i = _all_gather(r.dists, group), _all_gather(r.ids, group)
+    d, ids = _merge_topk(all_d, all_i, k)
+    return d, ids.to(torch.int32)
+
+
+def _scan_topk(X: torch.Tensor, queries: torch.Tensor, k: int, metric: str):
+    """The k nearest rows of X by a full scan through the distance kernel,
+    in chunks of entries when ``[b, n]`` distances do not fit at once;
+    chunks merge in order, which keeps the lowest-index-first tie order."""
     b, n = queries.shape[0], X.shape[0]
     if not 1 <= k <= n:
         raise ValueError(f"k must be in [1, n={n}]; got {k}")
@@ -50,3 +205,108 @@ def brute_force_knn(X, queries, *, k: int = 8, metric: str = "d_inf",
             vals, idx = vals[:, :k], idx.gather(1, sel[:, :k])
         best_d, best_i = vals, idx
     return best_d, best_i
+
+
+def brute_force_knn(X, queries, *, k: int = 8, metric: str = "d_inf",
+                    group=None, device=None):
+    """Exact k-NN by a full scan (the paper's "sequential scan" line):
+    (dists [b, k] f32, ids [b, k] int64) on ``device`` (None = the card; it
+    raises without one).  ``X`` and ``queries`` (numpy or tensors on any
+    device) are moved there.  Equal distances come back lowest index
+    first, as ``jax.lax.top_k`` gives them.
+
+    The reference's sharded form takes a ``torch.distributed`` process
+    group: ``X`` is this rank's slice (every rank's of one size, rank r
+    holding rows ``r*n .. (r+1)*n - 1``), each rank scans its slice and
+    cuts it to its k best, and the per-rank candidates are all-gathered
+    and merged by ``_merge_topk``.  The result equals the one-device
+    scan's."""
+    device = resolve_device(device)
+    X = torch.as_tensor(X, dtype=torch.float32, device=device)
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    d, i = _scan_topk(X, queries, k, metric)
+    if group is None:
+        return d, i
+    import torch.distributed as dist
+    i = i + dist.get_rank(group) * X.shape[0]
+    return _merge_topk(_all_gather(d, group), _all_gather(i, group), k)
+
+
+# --------------------------------------------------------------------------
+# Mutation fronts (one device; each row acts on its owner shard)
+# --------------------------------------------------------------------------
+def forest_delete(forest: TreeArrays, xs, oids):
+    """Delete a batch of ids from every shard that holds them, in place,
+    through the no-underflow fast path (``smtree.delete_fast``): a row that
+    would underflow leaves its shard as it was.  Returns (forest, found
+    [n] bool): found where some shard deleted the id."""
+    dev = forest.device
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    oids = torch.as_tensor(oids, dtype=torch.int32, device=dev).reshape(-1)
+    oids_h = oids.cpu().tolist()
+    found = np.zeros(len(oids_h), bool)
+    for t in unstack_forest(forest):
+        # an id absent from a shard before the batch stays absent: only
+        # the rows it may hold run the fast path
+        held = torch.isin(oids, t.oid[t.valid]).cpu().numpy()
+        for i in np.nonzero(held)[0]:
+            _, hit, underflow, _ = smtree.delete_fast(t, xs[i], oids_h[i])
+            found[i] |= hit and not underflow
+    return forest, torch.from_numpy(found).to(dev)
+
+
+def _validate_cohort(oids) -> None:
+    """The cohort contract on the host: unique, non-negative ids."""
+    oids_np = np.asarray(torch.as_tensor(oids).cpu())
+    if len(np.unique(oids_np)) != len(oids_np):
+        raise ValueError(
+            "forest_apply_mutations requires unique oids per batch "
+            "(conflict-free cohort)")
+    if len(oids_np) and int(oids_np.min()) < 0:
+        raise ValueError("negative object ids are reserved (NOP pad "
+                         "sentinel)")
+
+
+def forest_apply_mutations(forest: TreeArrays, ops, xs, oids, owner, *,
+                           validate: bool = False):
+    """A mixed insert/delete batch, in place: row i goes to shard
+    ``owner[i]`` only, through ``smtree.apply_mutations`` with splits and
+    merges off (as the reference's collective runs it).  Returns (forest,
+    statuses [B] int32): the owner's status, ST_NOP (0) where ``owner``
+    names no shard.  The batch must be a conflict-free cohort (unique,
+    non-negative ids); ``validate=True`` checks that first."""
+    if validate:
+        _validate_cohort(oids)
+    dev = forest.device
+    ops = torch.as_tensor(ops, dtype=torch.int32, device=dev).reshape(-1)
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    oids = torch.as_tensor(oids, dtype=torch.int32, device=dev).reshape(-1)
+    owner_h = np.asarray(torch.as_tensor(owner).cpu(), np.int64).reshape(-1)
+    status = torch.zeros(len(owner_h), dtype=torch.int32, device=dev)
+    for s, t in enumerate(unstack_forest(forest)):
+        rows = torch.from_numpy(np.nonzero(owner_h == s)[0]).to(dev)
+        if len(rows):
+            _, st = smtree.apply_mutations(t, ops[rows], xs[rows], oids[rows],
+                                           splits=False, merges=False)
+            status[rows] = st
+    return forest, status
+
+
+def forest_extract_objects(forest: TreeArrays, oids, owner):
+    """Owner-routed gather of stored vectors: shard ``owner[i]`` looks up
+    ``oids[i]`` (``smtree.extract_objects``).  Returns (vecs [B, dim] f32,
+    found [B] bool), zero rows where the owner does not hold the id.  The
+    vectors are a sum over shards of the masked rows, as the reference's
+    ``psum``: with two or more shards a stored -0.0 comes back +0.0."""
+    dev = forest.device
+    oids = torch.as_tensor(oids, dtype=torch.int32, device=dev).reshape(-1)
+    owner = torch.as_tensor(owner, dtype=torch.int32, device=dev).reshape(-1)
+    vecs = hits = None
+    for s, t in enumerate(unstack_forest(forest)):
+        mine = owner == s
+        v, f = smtree.extract_objects(t, torch.where(mine, oids, -1))
+        f = f & mine
+        v = torch.where(f[:, None], v, 0.0)
+        vecs = v if vecs is None else vecs + v
+        hits = f.int() if hits is None else hits + f.int()
+    return vecs, hits > 0

@@ -12,8 +12,10 @@ scores all entries of all frontier nodes of all queries in one call of the
 frontier scorer (kernels/frontier.py: the CUDA kernel on the card, the
 plain version on the CPU), prunes with the triangle inequality, and
 compacts the survivors into the next frontier with a fixed-size selection.
-Eager PyTorch always knows the tree's height, so the descent is always the
-cohort path (the reference's per-query engine is not ported yet).
+Eager PyTorch always knows the tree's height, so ``knn`` always takes the
+cohort path; the reference's per-query engine (``_knn_perquery``) is kept
+for the forest, which falls back to it when its shards' heights differ
+(core/distributed.py), and as the benchmark baseline.
 
 Differences from JAX carried over deliberately (each marked where handled):
 
@@ -29,10 +31,10 @@ Differences from JAX carried over deliberately (each marked where handled):
   * JAX clamps out-of-range gathers and torch raises: every clamp of the
     reference is kept.
 
-Insert/Delete mutate the tree's tensors in place (the reference returns a
-new pytree): the engine replaces its tree after each operation anyway, and
-in place a fast-path write touches a few rows instead of copying every
-array.
+Insert/Delete and the batched mutation apply (``apply_mutations``) mutate
+the tree's tensors in place (the reference returns a new pytree): the
+engine replaces its tree after each operation anyway, and in place a
+fast-path write touches a few rows instead of copying every array.
 """
 from __future__ import annotations
 
@@ -59,6 +61,11 @@ ARRAY_FIELDS = ("vecs", "radius", "pdist", "child", "oid", "valid", "count",
                 "is_leaf", "alive", "parent", "pslot", "root", "n_nodes",
                 "height", "free_list", "free_head")
 META_FIELDS = ("capacity", "dim", "metric", "max_nodes", "min_fill")
+# the fields with one row per node ([max_nodes, ...] in a tree); the rest
+# are per-tree scalars
+NODE_TABLE_FIELDS = ("vecs", "radius", "pdist", "child", "oid", "valid",
+                     "count", "is_leaf", "alive", "parent", "pslot",
+                     "free_list")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -566,6 +573,75 @@ def _knn_cohort(tree: TreeArrays, queries: torch.Tensor, r_cap, *, k: int,
     return res
 
 
+def _knn_perquery(tree: TreeArrays, queries: torch.Tensor, k: int, F: int,
+                  r_cap) -> QueryResult:
+    """The reference's per-query engine (``vmap`` of a ``while_loop``), run
+    for all ``b`` queries together, level by level.
+
+    Each query keeps a frontier of ``F`` slots from the root down and, per
+    level, scores every entry of its frontier nodes: the d_max bound (the
+    k-th smallest d + r, +_EPS), leaf candidates merged into the running
+    top-k (old entries first), then the ``F`` best surviving internal
+    entries as the next frontier.  A query is active while its frontier is
+    not empty; ``page_hits``, ``dist_evals`` (every valid entry of a
+    visited node) and ``overflow`` grow only while it is.  Every
+    ``lax.top_k`` of the reference is a stable sort here (``_smallest``).
+    Plain torch ops: no kernel.  The forest falls back to it when its
+    shards' heights differ (core/distributed.py:forest_knn)."""
+    dev = queries.device
+    i32 = torch.int32
+    b = queries.shape[0]
+    cap = tree.capacity
+    r_cap = torch.broadcast_to(
+        torch.as_tensor(r_cap, dtype=torch.float32, device=dev), (b,))
+    frontier = torch.full((b, F), -1, dtype=i32, device=dev)
+    frontier[:, 0] = tree.root
+    topk_d = torch.full((b, k), _INF, dtype=torch.float32, device=dev)
+    topk_i = torch.full((b, k), -1, dtype=i32, device=dev)
+    ub = torch.full((b,), _INF, dtype=torch.float32, device=dev)
+    page_hits = torch.zeros((b,), dtype=i32, device=dev)
+    dist_evals = torch.zeros((b,), dtype=i32, device=dev)
+    overflow = torch.zeros((b,), dtype=torch.bool, device=dev)
+
+    for _ in range(int(tree.height)):
+        fvalid = frontier >= 0                                   # [b, F]
+        active = fvalid.any(1)
+        if not bool(active.any()):
+            break
+        nodes = frontier.clamp(min=0).long()
+        evalid = tree.valid[nodes] & fvalid[:, :, None]         # [b, F, cap]
+        erad = tree.radius[nodes]
+        leafy = tree.is_leaf[nodes][:, :, None]
+        d = _metric_eval(tree.metric, queries[:, None, None, :],
+                         tree.vecs[nodes])                       # [b, F, cap]
+        page_hits += torch.where(active, fvalid.sum(1, dtype=i32), 0)
+        dist_evals += torch.where(active, evalid.sum((1, 2), dtype=i32), 0)
+
+        # d_max bound: the k-th smallest d + r over internal entries
+        imask0 = evalid & ~leafy
+        dmax = torch.where(imask0, d + erad, _INF).reshape(b, F * cap)
+        ub = torch.minimum(ub, _kth_smallest(dmax, k) + _EPS)
+        r_q = torch.minimum(torch.minimum(topk_d[:, k - 1], r_cap), ub)
+
+        # leaf candidates -> the running top-k (old entries first)
+        lmask = evalid & leafy & (d <= r_q[:, None, None])
+        cd = torch.where(lmask, d, _INF).reshape(b, F * cap)
+        ci = torch.where(lmask, tree.oid[nodes], -1).reshape(b, F * cap)
+        topk_d, sel = _smallest(torch.cat([topk_d, cd], dim=1), k)
+        topk_i = torch.cat([topk_i, ci], dim=1).gather(1, sel)
+        r_q = torch.minimum(torch.minimum(topk_d[:, k - 1], r_cap), ub)
+
+        # surviving internal entries -> the next frontier, closest first
+        imask = imask0 & ((d - erad) <= r_q[:, None, None] + _EPS)
+        score = torch.where(imask, d - erad, _INF).reshape(b, F * cap)
+        s_sel, order = _smallest(score, F)
+        childs = tree.child[nodes].reshape(b, F * cap)
+        frontier = torch.where(s_sel < _INF, childs.gather(1, order), -1)
+        overflow |= active & (imask.sum((1, 2)) > F)
+
+    return QueryResult(topk_d, topk_i, page_hits, dist_evals, overflow)
+
+
 # --------------------------------------------------------------------------
 # Insert/Delete fast paths (in place; see the module docstring)
 # --------------------------------------------------------------------------
@@ -642,6 +718,20 @@ def path_to_root(tree: TreeArrays, leaf: int):
     return chain_n[::-1] + pad, chain_s[::-1] + pad
 
 
+def _swap_remove(tree: TreeArrays, leaf: int, slot: int):
+    """Remove entry ``slot`` of ``leaf``, in place: the leaf's last entry
+    fills the hole, then the tail slot is cleared (this order handles
+    slot == last), and the radii along the path to the root are refreshed."""
+    last = int(tree.count[leaf]) - 1
+    for f in ("vecs", "radius", "pdist", "child", "oid"):
+        a = getattr(tree, f)
+        a[leaf, slot] = a[leaf, last].clone()
+    tree.valid[leaf, last] = False
+    tree.oid[leaf, last] = -1
+    tree.count[leaf] -= 1
+    _refresh_path_radii(tree, *path_to_root(tree, leaf))
+
+
 def delete_fast(tree: TreeArrays, x, obj_id: int):
     """No-underflow delete, in place.  Returns (tree, found, underflow,
     leaf_id).  On underflow the tree is left unchanged with underflow=True —
@@ -660,16 +750,7 @@ def delete_fast(tree: TreeArrays, x, obj_id: int):
     # the root never underflows
     if cnt - 1 < tree.min_fill and leaf != int(tree.root):
         return tree, True, True, leaf
-    pn, ps = path_to_root(tree, leaf)
-    last = cnt - 1
-    # swap-remove: move the last entry into the hole
-    for f in ("vecs", "radius", "pdist", "child", "oid"):
-        a = getattr(tree, f)
-        a[leaf, slot] = a[leaf, last].clone()
-    tree.valid[leaf, last] = False
-    tree.oid[leaf, last] = -1
-    tree.count[leaf] -= 1
-    _refresh_path_radii(tree, pn, ps)
+    _swap_remove(tree, leaf, slot)
     return tree, True, False, leaf
 
 
@@ -680,3 +761,130 @@ OP_NOP, OP_INSERT, OP_DELETE = 0, 1, 2
 ST_NOP, ST_APPLIED, ST_OVERFLOW, ST_UNDERFLOW, ST_NOTFOUND = 0, 1, 2, 3, 4
 ST_SPLIT = 5
 ST_MERGE = 6
+
+_NOT_PORTED_ITEM_9 = ("the device split and merge passes (splits=True / "
+                      "merges=True) are ROADMAP Queue 1 item 9, not ported "
+                      "yet; pass splits=False, merges=False")
+
+
+def _delete_row(tree: TreeArrays, oid: int, leaf: int, found: bool) -> int:
+    """The delete half of the reference's ``_apply_row``, in place: the
+    target's leaf was located before the batch (``_locate_oids``), its slot
+    is re-derived from the live row (an earlier swap-remove may have moved
+    it), and the last entry fills the hole before the tail is cleared."""
+    if not found:
+        return ST_NOTFOUND
+    row_hit = (tree.oid[leaf] == oid) & tree.valid[leaf]
+    slot = int(torch.argmax(row_hit.to(torch.uint8)))   # first hit
+    if int(tree.count[leaf]) - 1 < tree.min_fill and leaf != int(tree.root):
+        return ST_UNDERFLOW
+    _swap_remove(tree, leaf, slot)
+    return ST_APPLIED
+
+
+def _locate_slots(tree: TreeArrays, oids):
+    """For each requested id, the flat slot ``node * cap + slot`` that holds
+    it (``N * cap`` when absent) and a found mask, by one sorted join of the
+    whole table against the batch.  The lowest flat slot wins, and a
+    negative requested id (the pad sentinel) never matches.  Requires the
+    batch's ids to be unique (the conflict-free-cohort contract)."""
+    oids = torch.as_tensor(oids, dtype=torch.int32, device=tree.device)
+    B = oids.shape[0]
+    N, cap = tree.oid.shape
+    if B == 0:
+        return (torch.zeros((0,), dtype=torch.int32, device=tree.device),
+                torch.zeros((0,), dtype=torch.bool, device=tree.device))
+    sorted_oids, order = torch.sort(oids, stable=True)
+    pos = torch.searchsorted(sorted_oids, tree.oid).clamp(max=B - 1)
+    cand = sorted_oids[pos]
+    match = (cand == tree.oid) & tree.valid & (cand >= 0)
+    row = torch.where(match, order[pos], B).reshape(-1)   # B: dropped
+    flat = torch.arange(N * cap, dtype=torch.int64, device=tree.device)
+    first = torch.full((B + 1,), N * cap, dtype=torch.int64,
+                       device=tree.device)
+    first = first.scatter_reduce(0, row, flat, "amin")[:B]
+    return first.to(torch.int32), first < N * cap
+
+
+def _locate_oids(tree: TreeArrays, oids):
+    """The node holding each requested id (-1 when absent) and a found
+    mask: ``_locate_slots`` at node granularity."""
+    first, found = _locate_slots(tree, oids)
+    return torch.where(found, first // tree.capacity, -1), found
+
+
+def extract_objects(tree: TreeArrays, oids):
+    """The stored vectors of a batch of unique ids (-1 pads never match):
+    (vecs [B, dim] f32, found [B] bool), zero rows where an id is not live.
+    A stored -0.0 comes back as -0.0."""
+    N, cap = tree.oid.shape
+    first, found = _locate_slots(tree, oids)
+    flat_vecs = tree.vecs.reshape(N * cap, -1)
+    rows = flat_vecs[first.clamp(max=N * cap - 1).long()]
+    return torch.where(found[:, None], rows, 0.0), found
+
+
+def apply_mutations(tree: TreeArrays, ops, xs, oids, *, splits: bool = True,
+                    merges: bool = True):
+    """Batched insert/delete apply, in place (the port's contract, as for
+    ``insert_fast``/``delete_fast``): returns (tree, statuses [B] int32),
+    the tree being the argument itself.
+
+    ops: [B] opcodes (OP_INSERT, OP_DELETE; anything else is a NOP), xs:
+    [B, dim], oids: [B] ids, applied in log order.  The batch must be a
+    conflict-free cohort: no id twice.  Delete targets are located once,
+    against the pre-batch tree; the insert descent reads internal rows,
+    which no fast-path write touches, so it sees the pre-batch routing
+    pages as the reference's does.  Rows the fast path cannot absorb leave
+    the tree as it was and report ST_OVERFLOW / ST_UNDERFLOW /
+    ST_NOTFOUND; NOP rows report ST_NOP.  Statuses and tree bytes are the
+    reference scan's (``repro/core/smtree.py:_apply_row``); its branch-free
+    masked writes are host branches here, one row at a time: an insert row
+    is ``insert_fast`` (whose leaf-slot radius 0.0 and child -1 are what
+    leaf rows already hold), a delete row ``_delete_row``.
+
+    ``splits``/``merges`` select the reference's device split and merge
+    passes, which are not ported yet: either one raises
+    ``NotImplementedError`` before any row is applied."""
+    if splits or merges:
+        raise NotImplementedError(_NOT_PORTED_ITEM_9)
+    ops_h = np.asarray(torch.as_tensor(ops).cpu(), np.int64).reshape(-1)
+    oids_t = torch.as_tensor(oids, dtype=torch.int32,
+                             device=tree.device).reshape(-1)
+    oids_h = oids_t.cpu().tolist()
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=tree.device)
+    status = np.zeros(len(ops_h), np.int32)
+    dels = np.nonzero(ops_h == OP_DELETE)[0]
+    if len(dels):
+        leaf0, found0 = _locate_oids(tree, oids_t)
+        leaf0, found0 = leaf0.cpu().tolist(), found0.cpu().tolist()
+    for i, op in enumerate(ops_h.tolist()):
+        if op == OP_INSERT:
+            _, fits, _ = insert_fast(tree, xs[i], oids_h[i])
+            status[i] = ST_APPLIED if fits else ST_OVERFLOW
+        elif op == OP_DELETE:
+            status[i] = _delete_row(tree, oids_h[i], leaf0[i], found0[i])
+    return tree, torch.from_numpy(status).to(tree.device)
+
+
+def move_objects(donor: TreeArrays, receiver: TreeArrays, oids, *,
+                 splits: bool = True, merges: bool = True):
+    """Re-home ``oids`` from ``donor`` into ``receiver``, both in place:
+    (donor, receiver, moved [B] bool).  Insert before delete, so a failed
+    row leaves an object visible twice across the pair, never zero times;
+    ids absent from the donor, or whose insert or delete did not apply,
+    report ``moved`` False.  ``splits``/``merges`` as in
+    ``apply_mutations``: only False is ported."""
+    if splits or merges:
+        raise NotImplementedError(_NOT_PORTED_ITEM_9)
+    oids = torch.as_tensor(oids, dtype=torch.int32, device=donor.device)
+    vecs, found = extract_objects(donor, oids)
+    ins_ops = torch.where(found, OP_INSERT, OP_NOP)
+    receiver, st_i = apply_mutations(
+        receiver, ins_ops, vecs, torch.where(found, oids, -1),
+        splits=False, merges=False)
+    placed = found & (st_i.to(donor.device) == ST_APPLIED)
+    donor, st_d = apply_mutations(
+        donor, torch.where(placed, OP_DELETE, OP_NOP), vecs,
+        torch.where(placed, oids, -1), splits=False, merges=False)
+    return donor, receiver, placed & (st_d == ST_APPLIED)

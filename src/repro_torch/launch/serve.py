@@ -32,10 +32,10 @@ _UNPORTED = {
     "knn_mutate": "--knn-mutate needs the streaming store (ROADMAP Queue 1 item 10)",
     "frontend": "--frontend needs the serving front-end (ROADMAP Queue 1 item 11)",
     "replicas": "--replicas needs WAL shipping (ROADMAP Queue 1 items 10-11)",
-    "knn_shards": "--knn-shards needs the streaming forest (ROADMAP Queue 1 items 6, 10)",
+    "knn_shards": "--knn-shards needs the streaming forest (ROADMAP Queue 1 item 10)",
     "slo_ms": "--slo-ms needs the serving front-end (ROADMAP Queue 1 item 11)",
     "cohort_width": "--cohort-width needs the serving front-end (ROADMAP Queue 1 item 11)",
-    "rebalance_mode": "--rebalance-mode needs the streaming forest (ROADMAP Queue 1 items 6, 10)",
+    "rebalance_mode": "--rebalance-mode needs the streaming forest (ROADMAP Queue 1 item 10)",
     "obs": "--obs needs the observability plane (ROADMAP Queue 1 item 11)",
     "obs_out": "--obs-out needs the observability plane (ROADMAP Queue 1 item 11)",
 }

@@ -2,8 +2,9 @@
 
 Every phase of the on-card smoke test except the kernel build and the
 profiler runs here on CPU tensors (plain versions of the kernels), with
-JAX blocked: the index slice (``run``) and the kNN-LM serving slice
-(``run_lm``, a 2-layer qwen2.5-3b smoke model).  This keeps the script's
+JAX blocked: the index slice (``run``), the forest pass (``run_forest``)
+and the kNN-LM serving slice (``run_lm``, a 2-layer qwen2.5-3b smoke
+model).  This keeps the script's
 control flow, shapes and checks working between chip runs; the launch
 counts are only checked on the card.
 """
@@ -34,6 +35,9 @@ LM_TINY = dict(
                  "gqa_sq<sk": [1, 4, 2, 20, 40, 16, True, "float32"],
                  "noncausal_sq>sk": [1, 4, 2, 30, 12, 16, False, "float32"]},
     prune_nq=16, prune_ne=64, prune_d=5, timing_reps=2)
+FOREST_TINY = dict(n=4000, dims=6, capacity=8, n_shards=4, b_bench=16, b_exact=8,
+                   exact_fs=[64, 256, 1024, 4096], n_insert=60, n_delete=60,
+                   n_extract=16, b_recheck=8, timing_reps=2)
 KEYS = {"name", "route", "source", "replaces", "launches", "launches_per_pass",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
@@ -89,6 +93,43 @@ def test_index_slice_rehearses_on_the_cpu():
     assert set(dist["results"]) == {f"{s}/{m}" for s in ("path", "synthetic")
                                     for m in ("d_inf", "sqeuclidean", "ip")}
     assert all(r["bound_by"] == "bytes" for r in dist["results"].values())
+
+
+def test_forest_pass_rehearses_on_the_cpu():
+    phases, counts, build, exact, perq, mut = _rehearse(
+        f"run_forest({FOREST_TINY!r}, 'cpu')",
+        keep=("forest_build", "forest_knn_exact", "forest_perquery", "forest_mutations"))
+    assert phases == ["forest_build", "forest_knn_bench", "forest_knn_exact",
+                      "forest_perquery", "forest_mutations", "forest_path_launches"]
+    assert len(build["heights"]) == FOREST_TINY["n_shards"] == len(build["n_nodes"])
+    assert build["common_height"] == build["heights"][0] and build["device_bytes"] > 0
+    # the exact geometry: no shard overflowed, every row held against the scan
+    assert exact["no_overflow"] and exact["rows_checked_bitwise"] == FOREST_TINY["b_exact"]
+    assert exact["sharded_scan"]["equals_one_device_scan"]
+    assert perq["results"]["exact"]["rows_checked"] > 0
+    assert "rows_checked" not in perq["results"]["bench"]     # timed, not compared
+    assert mut["replay_bitwise"] and mut["extract"]["bitwise"]
+    assert sum(mut["statuses"].values()) == FOREST_TINY["n_insert"] + FOREST_TINY["n_delete"]
+    assert mut["escalation_rows_left"] == mut["statuses"]["overflow"] + mut["statuses"]["underflow"]
+    assert set(counts) == {"launches", "knn", "scan"}      # launches count on the card only
+
+
+def test_forest_counts_join_the_index_rows():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = [dict(name=n, launches=c, launches_per_pass={p: c})
+            for n, c, p in (("f", 17, "knn_bench"), ("fp", 119, "knn_bench"),
+                            ("d", 2, "brute_force_knn"))]
+    forest = dict(launches=dict(frontier=8, frontier_pruned=64, distance=9),
+                  knn=dict(frontier=8, frontier_pruned=24, distance=0),
+                  scan=dict(frontier=0, frontier_pruned=0, distance=8))
+    f, fp, d = chip_smoke.with_forest(rows, forest)
+    # ``launches`` stays the index path's count; the forest pass has its own
+    assert f["launches"] == 17 and f["launches_by_path"] == {"index": 17, "forest": 8}
+    assert f["launches_per_pass"] == {"knn_bench": 17, "forest_knn": 8}
+    assert fp["launches_per_pass"]["forest_knn"] == 24 and fp["launches"] == 119
+    assert d["launches_per_pass"] == {"brute_force_knn": 2, "brute_force_knn_sharded": 8}
+    assert rows[0]["launches"] == 17                          # inputs untouched
 
 
 def test_lm_slice_rehearses_on_the_cpu():

@@ -33,7 +33,8 @@ def test_port_runs_with_jax_blocked_and_loads_no_reference_module():
         sys.modules["jax"] = None          # any import of jax now fails
         import numpy as np
         import repro_torch.core.distributed, repro_torch.core.engine
-        import repro_torch.core.convert
+        import repro_torch.core.convert, repro_torch.core.ref_impl
+        from repro_torch.core.distributed import build_forest, forest_knn
         from repro_torch.core.engine import SMTreeEngine
         from repro_torch.data.datagen import clustered
         X = clustered(500, dims=6, seed=0)
@@ -42,6 +43,8 @@ def test_port_runs_with_jax_blocked_and_loads_no_reference_module():
         eng.insert(X[0] + 0.5, 10_000)
         assert eng.delete(X[0] + 0.5, 10_000)
         assert eng.validate()
+        forest = build_forest(X, 3, capacity=8, device="cpu")
+        assert forest_knn(forest, X[:2], k=3)[1].shape == (2, 3)
         bad = sorted(m for m, v in sys.modules.items() if v is not None and
                      (m == "jax" or m.startswith("jax.") or m == "repro"
                       or m.startswith("repro.")))

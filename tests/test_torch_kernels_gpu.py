@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import distributed as fd  # noqa: E402
 from repro_torch.core import smtree  # noqa: E402
 from repro_torch.core.convert import tree_to_numpy  # noqa: E402
 from repro_torch.core.distributed import brute_force_knn  # noqa: E402
@@ -406,6 +407,64 @@ def test_brute_force_knn_on_card_matches_cpu(cuda):
     dg, ig = brute_force_knn(torch.from_numpy(X).to(cuda), Q, k=9)
     dc, ic = brute_force_knn(X, Q, k=9, device="cpu")
     assert torch.equal(dg.cpu(), dc) and torch.equal(ig.cpu(), ic)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("F", [4, 64, 1024])
+def test_forest_descent_kernel_path_matches_plain_path(cuda, metric, F):
+    """Each shard's descent through the frontier kernels (both forms)
+    against the same forest through the plain scorer, and the card's forest
+    against the CPU's: the merged results and every shard's five fields."""
+    X = clustered(20_000, dims=20, seed=5)
+    forest = fd.build_forest(X, 4, capacity=32, metric=metric, device=cuda)
+    Q = torch.from_numpy(X[::500] + 0.01).to(cuda)
+    n0 = frontier_scores.launches
+    d, i = fd.forest_knn(forest, Q, k=10, max_frontier=F)
+    assert frontier_scores.launches > n0 and frontier_scores.pruned_launches > 0
+    dp, ip = fd.forest_knn(forest, Q, k=10, max_frontier=F, _scorer=frontier_scores_torch)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+    cpu = fd.build_forest(X, 4, capacity=32, metric=metric, device="cpu")
+    dc, ic = fd.forest_knn(cpu, Q.cpu(), k=10, max_frontier=F)
+    assert torch.equal(d.cpu(), dc) and torch.equal(i.cpu(), ic)
+    h = fd.common_static_height(forest)
+    for t in fd.unstack_forest(forest):
+        a = smtree._knn_cohort(t, Q, float("inf"), k=10, F=F, height=h)
+        p = smtree._knn_cohort(t, Q, float("inf"), k=10, F=F, height=h,
+                               scorer=frontier_scores_torch)
+        for f in FIELDS:
+            assert torch.equal(getattr(a, f), getattr(p, f)), f
+
+
+def test_forest_fronts_on_card_match_cpu(cuda):
+    """The sharded scan, the per-query engine and the mutation fronts give
+    the CPU's results and tree bytes on the card."""
+    X = clustered(8000, dims=20, seed=6)
+    Q = X[:32] + 0.01
+    Xd, Qd = torch.from_numpy(X).to(cuda), torch.from_numpy(Q).to(cuda)
+    parts = [fd._scan_topk(Xd[s * 2000:(s + 1) * 2000], Qd, 7, "d_inf") for s in range(4)]
+    d, i = fd._merge_topk(torch.stack([p[0] for p in parts]),
+                          torch.stack([p[1] + s * 2000 for s, p in enumerate(parts)]), 7)
+    dc, ic = brute_force_knn(X, Q, k=7, device="cpu")
+    assert torch.equal(d.cpu(), dc) and torch.equal(i.cpu(), ic)
+    d, i = brute_force_knn(Xd, Qd, k=7, device=cuda)
+    assert torch.equal(d.cpu(), dc) and torch.equal(i.cpu(), ic)
+    forests = [fd.build_forest(X, 4, capacity=16, device=dev) for dev in (cuda, "cpu")]
+    t = [fd.unstack_forest(f)[1] for f in forests]
+    a, b = (smtree._knn_perquery(tt, torch.from_numpy(Q).to(tt.device), 5, 16,
+                                 float("inf")) for tt in t)
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    rng = np.random.default_rng(0)
+    oids = np.concatenate([rng.choice(8000, 300, replace=False), 9000 + np.arange(300)])
+    ops = np.where(oids < 8000, smtree.OP_DELETE, smtree.OP_INSERT).astype(np.int32)
+    xs = np.where((oids < 8000)[:, None], X[np.minimum(oids, 7999)],
+                  rng.random((600, 20))).astype(np.float32)
+    sts = [fd.forest_apply_mutations(f, ops, xs, oids, oids % 4)[1] for f in forests]
+    assert torch.equal(sts[0].cpu(), sts[1])
+    for name in smtree.ARRAY_FIELDS:
+        assert torch.equal(getattr(forests[0], name).cpu(), getattr(forests[1], name)), name
+    ex = [fd.forest_extract_objects(f, oids, oids % 4) for f in forests]
+    assert torch.equal(ex[0][0].cpu(), ex[1][0]) and torch.equal(ex[0][1].cpu(), ex[1][1])
 
 
 def _qkv(rng, dev, b, h, hk, sq, sk, d, dtype):
