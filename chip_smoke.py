@@ -35,6 +35,17 @@ The index slice (``run``):
      scorer at the bench and the exact geometry (captured through the
      plain scorer in phase 4), replayed level by level through the narrow
      kernel as phase 12 does for the wide one;
+  5c. device_split_merge: a cohort of about 8,192 rows on the updated
+     index (inserts of new ids piled on every leaf under consecutive
+     level-1 nodes, deletes thinning leaves below min_fill, beside
+     thinned siblings and beside full ones), growing the node table first
+     if ``needs_headroom`` says so: one clone through
+     ``apply_mutations`` with the device split and merge passes, another
+     through the fast scan and the host plane (``escalate_rows``), held
+     bitwise (statuses with ST_SPLIT/ST_MERGE read as ST_APPLIED, all 16
+     fields), validate(), the exact kNN check against a scan of the live
+     set; the seconds of the fast scan, of each pass (ms per row) and of
+     the host plane;
   6. the cohort descent through the kernels against the same descent
      through the plain scorer, bitwise (all five result fields and the
      level-stat stacks), on the d_inf tree and on 100k-object l2/l1 trees.
@@ -63,8 +74,13 @@ and read just after, so that the index slice's counts stay comparable:
       routed, through ``forest_apply_mutations``, statuses and every
       field bitwise against the same log one row at a time through
       ``insert_fast``/``delete_fast``; ``forest_extract_objects`` of 256
-      live ids against their stored rows; the exact kNN check again against
-      a scan of the live set; then the pass's launch counts.
+      live ids against their stored rows; the cohort's overflow rows
+      through ``forest_apply_splits`` in ``split_chunks`` widths, then its
+      underflow rows through ``forest_apply_merges`` in ``merge_chunks``
+      widths (the stream pipeline's order), every shard held bitwise
+      against its rows through ``escalate_rows``, and the escalation rows
+      left; the exact kNN check again against a scan of the live set; then
+      the pass's launch counts.
 
 The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
 
@@ -95,6 +111,14 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
       validate(), and the bitwise check again; then the slice's launch
       counts;
   and, outside the counts,
+  11b. knnlm_batched_evict: the same 1,024 deletes as one cohort through
+      ``apply_mutations`` with the device passes, on a copy of the store's
+      tree taken before ``evict_before`` (the wide-row l2 split/merge path;
+      not bitwise to ``evict_before``'s tree, since a cohort orders its
+      structure edits differently from one Delete at a time): seconds,
+      merges and redistributions beside ``evict_before``'s seconds,
+      validate(), the live ids equal to the evicted store's, retrieval at
+      b=4 and b=64 with the kernel descent bitwise to the plain one;
   12. frontier_replay: the frontiers that the descent passed to the scorer
       in the first retrieval at b=4 and b=64 (captured through the plain
       scorer), replayed level by level through the wide kernel, bitwise
@@ -117,6 +141,7 @@ result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -131,7 +156,7 @@ FULL = dict(n=1_000_000, dims=20, capacity=32, b_bench=1024, b_exact=256,
             b_parity=128, b_recheck=64, n_small=100_000, kernel_b=1024,
             kernel_F=64, kernel_N=50_000, dist_nq=1024, dist_ne=65_536,
             dist_path_nq=256, dist_path_ne=1_000_000,
-            n_insert=300, timing_reps=5)
+            n_insert=300, sm_rows=8192, sm_min_rows=100, timing_reps=5)
 # the SM-forest: the index slice's set round robin over 8 shards
 FOREST_FULL = dict(n=1_000_000, dims=20, capacity=32, n_shards=8, b_bench=1024,
                    b_exact=256, exact_fs=(512, 1024, 2048, 4096, 8192, 16384),
@@ -385,6 +410,213 @@ def narrow_frontier_inputs(rng, cfg: dict, dev):
     filt = dict(pdist=t(np.abs(rng.normal(0.5, 0.3, (N, cap))).astype(np.float32)),
                 qpd=t(qpd_np), rq=t(np.abs(rng.normal(0.2, 0.1, b)).astype(np.float32)))
     return (t(fids_np), queries, vecs, radius, iv, lv), filt
+
+
+@contextlib.contextmanager
+def split_merge_probe(sync):
+    """For the calls of ``apply_mutations`` inside the block: the seconds
+    of the split and the merge pass (``resolve_overflows`` and
+    ``resolve_underflows``, the device synchronised around each), the rows
+    each pass was given, the internal nodes the split pass added (a split
+    that climbed above the leaves), the nodes the merge pass freed and the
+    levels it collapsed, and its re-splits (every ``_promote_and_partition``
+    of a two-node union is a redistribution)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import smtree
+
+    rec = dict(split_seconds=0.0, merge_seconds=0.0, split_rows=0, merge_rows=0,
+               internal_nodes_added=0, nodes_freed=0, levels_collapsed=0,
+               redistributions=0)
+    names = ("resolve_overflows", "resolve_underflows", "_promote_and_partition")
+    orig = {name: getattr(smtree, name) for name in names}
+
+    def shape(t):
+        return (int((t.alive & ~t.is_leaf).sum()), int(t.alive.sum()), int(t.height))
+
+    def rows(statuses, ops, status, op):
+        ops = np.asarray(torch.as_tensor(ops).cpu()).reshape(-1)
+        return int(((np.asarray(statuses) == status) & (ops == op)).sum())
+
+    def overflows(tree, ops, xs, oids, statuses):
+        rec["split_rows"] += rows(statuses, ops, smtree.ST_OVERFLOW, smtree.OP_INSERT)
+        i0, _, _ = shape(tree)
+        sync()
+        t0 = time.perf_counter()
+        out = orig["resolve_overflows"](tree, ops, xs, oids, statuses)
+        sync()
+        rec["split_seconds"] += time.perf_counter() - t0
+        rec["internal_nodes_added"] += shape(tree)[0] - i0
+        return out
+
+    def underflows(tree, ops, oids, statuses):
+        rec["merge_rows"] += rows(statuses, ops, smtree.ST_UNDERFLOW, smtree.OP_DELETE)
+        _, a0, h0 = shape(tree)
+        sync()
+        t0 = time.perf_counter()
+        out = orig["resolve_underflows"](tree, ops, oids, statuses)
+        sync()
+        rec["merge_seconds"] += time.perf_counter() - t0
+        _, a1, h1 = shape(tree)
+        rec["nodes_freed"] += a0 - a1
+        rec["levels_collapsed"] += h0 - h1
+        return out
+
+    def partition(t, D, *a, **kw):
+        rec["redistributions"] += D.shape[0] == 2 * t.capacity
+        return orig["_promote_and_partition"](t, D, *a, **kw)
+
+    for name, fn in zip(names, (overflows, underflows, partition)):
+        setattr(smtree, name, fn)
+    try:
+        yield rec
+    finally:
+        for name, fn in orig.items():
+            setattr(smtree, name, fn)
+    # a merge frees one node, a root collapse one more and a level
+    rec["merges"] = rec["nodes_freed"] - rec["levels_collapsed"]
+    for kind in ("split", "merge"):
+        n = rec[kind + "_rows"]
+        rec[f"ms_per_{kind}_row"] = rec[kind + "_seconds"] * 1e3 / n if n else None
+
+
+def clone_tree(t):
+    """A copy of a tree whose tensors share nothing with ``t``."""
+    from repro_torch.core.smtree import ARRAY_FIELDS
+    return dataclasses.replace(t, **{f: getattr(t, f).clone() for f in ARRAY_FIELDS})
+
+
+def split_merge_cohort(tree, Xall, n_rows: int, first_id: int, rng):
+    """A conflict-free cohort of about ``n_rows`` rows on the leaves' own
+    structure (read from the tree once, on the host): half inserts of new
+    ids, piled ``cap - count + cap // 4`` deep on every leaf under
+    consecutive level-1 nodes (each leaf overflows, and so do their
+    parents); half deletes, that thin every leaf under the next level-1
+    nodes to ``min_fill - 1`` (the thinned siblings merge, and the
+    parents underflow in turn) and then one leaf under each of the
+    following ones (beside untouched siblings, which redistribute).
+    Returns (ops, xs, oids) in a shuffled log order."""
+    import numpy as np
+
+    from repro_torch.core import smtree
+
+    cap, mf = tree.capacity, tree.min_fill
+    a = {f: getattr(tree, f).cpu().numpy() for f in ("count", "parent", "alive",
+                                                      "is_leaf", "oid")}
+    kids = {}
+    for leaf in np.nonzero(a["alive"] & a["is_leaf"])[0]:
+        kids.setdefault(int(a["parent"][leaf]), []).append(int(leaf))
+    parents = iter(sorted(kids))
+    half = n_rows // 2
+    ins_x = []
+    while len(ins_x) < half:
+        for leaf in kids[next(parents)]:
+            x = Xall[a["oid"][leaf, 0]]
+            k = cap - int(a["count"][leaf]) + cap // 4
+            ins_x += list(np.clip(x + rng.normal(0, 1e-4, (k, x.shape[0])), 0, 1))
+    victims = []
+    while len(victims) < half // 2:                  # thinned parents: merges
+        for leaf in kids[next(parents)]:
+            victims += a["oid"][leaf, :a["count"][leaf] - mf + 1].tolist()
+    while len(victims) < half:                       # one leaf each: re-splits
+        leaf = kids[next(parents)][0]
+        victims += a["oid"][leaf, :a["count"][leaf] - mf + 1].tolist()
+    ins_x = np.asarray(ins_x, np.float32)
+    ops = np.concatenate([np.full(len(ins_x), smtree.OP_INSERT),
+                          np.full(len(victims), smtree.OP_DELETE)]).astype(np.int32)
+    oids = np.concatenate([first_id + np.arange(len(ins_x)), victims]).astype(np.int32)
+    xs = np.vstack([ins_x, Xall[victims]]).astype(np.float32)
+    order = rng.permutation(len(ops))
+    return ops[order], xs[order], oids[order]
+
+
+def split_merge_phase(cfg: dict, eng, Xall, keep, Qb, F_exact: int, check_exact,
+                      device: str):
+    """Phase 5c (module docstring): a cohort through the device split and
+    merge passes on one clone of the index and through the host plane on
+    another, held bitwise, then validated and re-checked exactly."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import smtree
+    from repro_torch.core.distributed import brute_force_knn
+    from repro_torch.core.engine import SMTreeEngine
+    from repro_torch.stream.batcher import escalate_rows
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    sync, _, wall = timers(on_card)
+    grown = smtree.needs_headroom(eng.tree)
+    if grown:
+        eng.tree = smtree.grow_tree(eng.tree)
+    rng = np.random.default_rng(21)
+    ops, xs, oids = split_merge_cohort(eng.tree, Xall, cfg["sm_rows"], len(Xall), rng)
+    inserted = oids[ops == smtree.OP_INSERT]
+    tree_a, tree_b = clone_tree(eng.tree), clone_tree(eng.tree)
+
+    # clone A: the fast scan, then the device split and merge passes
+    with split_merge_probe(sync) as probe:
+        (_, st_a), a_s = wall(lambda: smtree.apply_mutations(tree_a, ops, xs, oids))
+    st_a = st_a.cpu().numpy()
+    # clone B: the fast scan alone, then the host plane
+    (_, st_b), b_scan_s = wall(lambda: smtree.apply_mutations(
+        tree_b, ops, xs, oids, splits=False, merges=False))
+    st_b = st_b.cpu().numpy().copy()
+    scan_counts = {name: int((st_b == code).sum()) for name, code in (
+        ("applied", smtree.ST_APPLIED), ("overflow", smtree.ST_OVERFLOW),
+        ("underflow", smtree.ST_UNDERFLOW), ("notfound", smtree.ST_NOTFOUND))}
+    tree_b, host_s = wall(lambda: escalate_rows(tree_b, st_b, ops, xs, oids))
+    normal = np.where(np.isin(st_a, (smtree.ST_SPLIT, smtree.ST_MERGE)),
+                      smtree.ST_APPLIED, st_a)
+    check(np.array_equal(normal, st_b), "device passes: statuses differ from the host plane")
+    check(bool((st_b == smtree.ST_APPLIED).all()), "a row of the cohort did not apply")
+    for f in smtree.ARRAY_FIELDS:
+        check(torch.equal(getattr(tree_a, f), getattr(tree_b, f)),
+              f"device passes: field {f} differs from the host plane")
+    del tree_b
+    n_split = int((st_a == smtree.ST_SPLIT).sum())
+    n_merge = int((st_a == smtree.ST_MERGE).sum())
+    check(n_split >= cfg["sm_min_rows"] and n_merge >= cfg["sm_min_rows"],
+          f"{n_split} rows resolved by splits, {n_merge} by merges")
+    check(probe["internal_nodes_added"] > 0, "no split climbed above the leaves")
+    check(probe["merges"] > 0, "the merge branch was never taken")
+    check(probe["redistributions"] > 0, "the redistribute branch was never taken")
+    eng_a = SMTreeEngine(tree_a)
+    _, val_s = wall(eng_a.validate)
+
+    # the exact kNN check against a scan of the live set
+    new_x = xs[ops == smtree.OP_INSERT][np.argsort(inserted)]
+    Xall2 = np.vstack([Xall, new_x])
+    keep2 = np.concatenate([keep, np.ones(len(new_x), bool)])
+    keep2[oids[ops == smtree.OP_DELETE]] = False
+    check(eng_a.n_objects == int(keep2.sum()), "object count after the cohort")
+    live_ids = torch.from_numpy(np.nonzero(keep2)[0]).to(dev)
+    Xlive = torch.from_numpy(Xall2[keep2]).to(dev)
+    half = cfg["b_recheck"] // 2
+    Qr = torch.cat([Qb[:half], torch.from_numpy(new_x[:half]).to(dev)])
+    res = eng_a.knn(Qr, k=K, max_frontier=F_exact)
+    sd, si = brute_force_knn(Xlive, Qr, k=K + 1, metric="d_inf", device=device)
+    n_ok, n_ids = check_exact(res, sd, si, lambda i: live_ids[i],
+                              "knn after the split and merge passes")
+    emit("device_split_merge", rows=len(ops), inserts=int(len(inserted)),
+         deletes=int(len(ops) - len(inserted)), needs_headroom=grown,
+         max_nodes=tree_a.max_nodes, scan_statuses=scan_counts,
+         resolved_by_split=n_split, resolved_by_merge=n_merge,
+         seconds_total=a_s,
+         fast_scan_seconds=a_s - probe["split_seconds"] - probe["merge_seconds"],
+         split_pass=dict(seconds=probe["split_seconds"], rows=probe["split_rows"],
+                         ms_per_row=probe["ms_per_split_row"],
+                         internal_nodes_added=probe["internal_nodes_added"]),
+         merge_pass=dict(seconds=probe["merge_seconds"], rows=probe["merge_rows"],
+                         ms_per_row=probe["ms_per_merge_row"], merges=probe["merges"],
+                         redistributions=probe["redistributions"],
+                         levels_collapsed=probe["levels_collapsed"]),
+         host_plane=dict(fast_scan_seconds=b_scan_s, escalate_rows_seconds=host_s,
+                         rows=scan_counts["overflow"] + scan_counts["underflow"]),
+         bitwise_vs_host_plane=True, validate=True, validate_seconds=val_s,
+         height=int(tree_a.height), recheck_rows_bitwise=n_ok, recheck_rows_ids=n_ids)
+    del tree_a, eng_a, Xlive
 
 
 def run(cfg: dict, device: str):
@@ -707,6 +939,9 @@ def run(cfg: dict, device: str):
          results=replay)
     del index_calls, index_pages, replay
 
+    # ---------------------------------------------------------------- 5c
+    split_merge_phase(cfg, eng, Xall, keep, Qb, F_exact, check_exact, device)
+
     # ---------------------------------------------------------------- 6
     def parity(tree, Q, Fx, what):
         h = int(tree.height)
@@ -995,7 +1230,9 @@ def run_forest(cfg: dict, device: str):
         check(torch.equal(getattr(forest, f), getattr(replay, f)),
               f"forest field {f} differs from the one-row replay")
     del replay, shards
-    applied = st == smtree.ST_APPLIED
+    scan_st = st
+    st, fronts = forest_fronts(forest, ops, xs, oids, owner, st, wall)
+    applied = np.isin(st, (smtree.ST_APPLIED, smtree.ST_SPLIT, smtree.ST_MERGE))
     escalations = int(((st == smtree.ST_OVERFLOW) | (st == smtree.ST_UNDERFLOW)).sum())
     # the stored rows of live ids, owner-routed
     gone = set(oids[applied & (ops == smtree.OP_DELETE)].tolist())
@@ -1023,10 +1260,10 @@ def run_forest(cfg: dict, device: str):
                               lambda i: live_ids[i], "forest_knn after mutations")
     emit("forest_mutations", inserts=n_ins, deletes=n_del, seconds=mut_s,
          ms_per_row=mut_s * 1e3 / len(ops), one_row_replay_seconds=one_s,
-         statuses={name: int((st == code).sum()) for name, code in (
+         statuses={name: int((scan_st == code).sum()) for name, code in (
              ("applied", smtree.ST_APPLIED), ("overflow", smtree.ST_OVERFLOW),
              ("underflow", smtree.ST_UNDERFLOW), ("notfound", smtree.ST_NOTFOUND))},
-         escalation_rows_left=escalations, replay_bitwise=True,
+         fronts=fronts, escalation_rows_left=escalations, replay_bitwise=True,
          extract=dict(ids=len(ex_ids), seconds=ex_s, bitwise=True),
          recheck_rows_bitwise=n_ok, recheck_rows_ids=n_ids,
          n_objects=int(sum(t.n_objects for t in fd.unstack_forest(forest))))
@@ -1039,6 +1276,70 @@ def run_forest(cfg: dict, device: str):
     return dict(launches=launches, knn=knn_launches, scan=scan_launches)
 
 
+def forest_fronts(forest, ops, xs, oids, owner, st, wall):
+    """The stream pipeline's orchestration of a cohort's escalations
+    (``repro/stream/pipeline.py``): the overflow rows through
+    ``forest_apply_splits`` in ``split_chunks`` widths, stopping at a chunk
+    that blocked, then, when no overflow is left, the underflow rows
+    through ``forest_apply_merges`` in ``merge_chunks`` widths.  Every
+    shard is then held bitwise against its own rows through the host plane
+    (``escalate_rows`` on a copy of the shard as the scan left it; rows a
+    blocked ring leaves go through the host plane on both sides).  Returns
+    (statuses after the fronts, a report)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as fd
+    from repro_torch.core import smtree
+    from repro_torch.stream.batcher import escalate_rows
+
+    dim = xs.shape[1]
+    before = [clone_tree(t) for t in fd.unstack_forest(forest)]
+    out = st.copy()
+    report = {}
+    for kind, code, op, done, widths in (
+            ("split", smtree.ST_OVERFLOW, smtree.OP_INSERT, smtree.ST_SPLIT,
+             smtree.split_chunks),
+            ("merge", smtree.ST_UNDERFLOW, smtree.OP_DELETE, smtree.ST_MERGE,
+             smtree.merge_chunks)):
+        idx = np.nonzero((out == code) & (ops == op))[0]
+        if kind == "merge" and (out == smtree.ST_OVERFLOW).any():
+            idx = idx[:0]
+        seconds, c0, resolved = 0.0, 0, 0
+        for w in widths(len(idx)):
+            chunk = idx[c0:c0 + w]
+            c0 += w
+            k = len(chunk)
+            pad = lambda a, fill: np.concatenate([a[chunk], np.full(w - k, fill, a.dtype)])
+            ops_k, oids_k, owner_k = pad(ops, smtree.OP_NOP), pad(oids, -1), pad(owner, -1)
+            if kind == "split":
+                xs_k = np.vstack([xs[chunk], np.zeros((w - k, dim), np.float32)])
+                (_, s2), sec = wall(lambda: fd.forest_apply_splits(
+                    forest, ops_k, xs_k, oids_k, owner_k))
+            else:
+                (_, s2), sec = wall(lambda: fd.forest_apply_merges(
+                    forest, ops_k, oids_k, owner_k))
+            s2 = s2.cpu().numpy()[:k]
+            seconds += sec
+            resolved += int((s2 == done).sum())
+            out[chunk] = s2
+            if (s2 == smtree.ST_OVERFLOW).any():
+                break            # blocked: the rest goes to the host plane
+        report[kind] = dict(rows=len(idx), resolved=resolved, seconds=seconds,
+                            ms_per_row=seconds * 1e3 / len(idx) if len(idx) else None)
+    S = len(before)
+    for s, (t, t0) in enumerate(zip(fd.unstack_forest(forest), before)):
+        mine = owner == s
+        want = escalate_rows(t0, st[mine].copy(), ops[mine], xs[mine], oids[mine])
+        left = out[mine].copy()
+        got = escalate_rows(clone_tree(t), left, ops[mine], xs[mine], oids[mine])
+        for f in smtree.ARRAY_FIELDS:
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"forest shard {s}: field {f} differs from the host plane")
+    report.update(shards_bitwise_vs_host_plane=S)
+    return out, report
+
+
 def run_lm(cfg: dict, device: str):
     """The kNN-LM serving slice: its kernels against their plain versions
     (outside the launch counts), then its main path with the counts zeroed
@@ -1049,6 +1350,8 @@ def run_lm(cfg: dict, device: str):
     import torch.nn.functional as Fnn
 
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import smtree
+    from repro_torch.core.engine import SMTreeEngine
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.kernels.distance import (pairwise_distance_prune,
                                               pairwise_distance_prune_torch)
@@ -1367,6 +1670,8 @@ def run_lm(cfg: dict, device: str):
 
     before = retrieval("built", capture=True)
     n_ev = cfg["ds_evict"]
+    # a copy for phase 11b, taken before the eviction (no launch)
+    batched = clone_tree(store.engine.tree)
     nodes_before = int(store.engine.tree.alive.sum())
     evicted, evict_s = wall(lambda: store.evict_before(n_ev))
     nodes_after = int(store.engine.tree.alive.sum())
@@ -1388,7 +1693,52 @@ def run_lm(cfg: dict, device: str):
               "the wide frontier variant did not carry the datastore's retrieval")
         check(path["frontier_pruned"] > 0 and path["frontier"] > path["frontier_pruned"],
               "the wide frontier ran without or only with the parent filter")
-    del store, params, keys
+
+    # ---------------------------------------------------------------- 11b
+    # the same deletes as one cohort through the device passes, on the copy
+    ev_ops = np.full(n_ev, smtree.OP_DELETE, np.int32)
+    ev_ids = np.arange(n_ev, dtype=np.int32)
+    with split_merge_probe(sync) as probe:
+        (_, st_ev), bev_s = wall(lambda: smtree.apply_mutations(
+            batched, ev_ops, store.keys[:n_ev], ev_ids))
+    st_ev = st_ev.cpu().numpy()
+    check(bool(np.isin(st_ev, (smtree.ST_APPLIED, smtree.ST_MERGE)).all()),
+          "batched eviction: a delete did not apply")
+    beng = SMTreeEngine(batched)
+    _, bval_s = wall(beng.validate)
+
+    def live_ids(t):
+        return torch.sort(t.oid[t.valid & (t.alive & t.is_leaf)[:, None]]).values
+
+    check(torch.equal(live_ids(batched), live_ids(store.engine.tree)),
+          "batched eviction: the live ids differ from evict_before's")
+    bret = {}
+    for rb in cfg["ret_bs"]:
+        q = Q[:rb]
+        c0 = counts()
+        res = beng.knn(q, k=8, max_frontier=128)
+        launches = delta(c0)
+        ref = beng.knn(q, k=8, max_frontier=128, _scorer=frontier_scores_torch)
+        for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
+            check(torch.equal(getattr(res, f), getattr(ref, f)),
+                  f"batched eviction b={rb}: kernel and plain descents differ in {f}")
+        bret[f"b{rb}"] = dict(bitwise_vs_plain=True, frontier_launches=launches["frontier"],
+                              overflow_share=float(res.overflow.float().mean()),
+                              min_id=int(res.ids.min()))
+    emit("knnlm_batched_evict", deletes=n_ev, seconds=bev_s, evict_before_seconds=evict_s,
+         not_bitwise_to_evict_before="a cohort orders its structure edits "
+         "differently from one Delete at a time",
+         statuses={"applied": int((st_ev == smtree.ST_APPLIED).sum()),
+                   "merge": int((st_ev == smtree.ST_MERGE).sum())},
+         fast_scan_seconds=bev_s - probe["merge_seconds"] - probe["split_seconds"],
+         merge_pass=dict(seconds=probe["merge_seconds"], rows=probe["merge_rows"],
+                         ms_per_row=probe["ms_per_merge_row"], merges=probe["merges"],
+                         redistributions=probe["redistributions"],
+                         levels_collapsed=probe["levels_collapsed"]),
+         alive_nodes=int(batched.alive.sum()), height=int(batched.height),
+         validate=True, validate_seconds=bval_s, live_ids_equal_evict_before=True,
+         retrieval=bret)
+    del store, params, keys, batched, beng
     free()
 
     # ---------------------------------------------------------------- 12

@@ -11,15 +11,16 @@ loops over the shards, working on views of the stacked tensors:
   * ``forest_knn``: every shard runs the local kNN over its tree, then the
     per-shard candidates are merged shard-major and cut to the global
     top-k (the reference's all-gather and ``lax.top_k``);
-  * ``forest_delete``, ``forest_apply_mutations`` and
-    ``forest_extract_objects``: each row acts on its owner shard only,
-    and the outcome is what the reference's ``psum`` of masked rows gives.
+  * ``forest_delete``, ``forest_apply_mutations``, ``forest_apply_splits``,
+    ``forest_apply_merges`` and ``forest_extract_objects``: each row acts
+    on its owner shard only, and the outcome is what the reference's
+    ``psum`` of masked rows gives.
 
-With a ``torch.distributed`` process group, ``forest_knn`` and
-``brute_force_knn`` run one shard per rank instead and all-gather the
-per-shard candidates before the same merge.  The mutation fronts have no
-collective form yet; the forest's split and merge fronts, ``place_forest``
-and ``promote_follower`` wait for ROADMAP Queue 1 items 9 and 10.
+With a ``torch.distributed`` process group every front runs one shard per
+rank instead: ``forest_knn`` and ``brute_force_knn`` all-gather the
+per-shard candidates before the same merge, and the mutation fronts
+all-reduce their masked rows by sum (the ``psum``).  ``place_forest`` and
+``promote_follower`` wait for ROADMAP Queue 1 item 10.
 
 Every selection is a stable ascending sort, so equal values come back
 lowest index first, as ``jax.lax.top_k`` gives them.
@@ -233,26 +234,48 @@ def brute_force_knn(X, queries, *, k: int = 8, metric: str = "d_inf",
 
 
 # --------------------------------------------------------------------------
-# Mutation fronts (one device; each row acts on its owner shard)
+# Mutation fronts (each row acts on its owner shard; with a process group,
+# this rank's shard, and the masked rows are summed over the ranks)
 # --------------------------------------------------------------------------
-def forest_delete(forest: TreeArrays, xs, oids):
+def _local_shards(forest: TreeArrays, group) -> list[tuple[int, TreeArrays]]:
+    """(shard index, tree) of every shard this process holds: all of a
+    stacked forest's (as views), or this rank's own tree."""
+    if group is None:
+        return list(enumerate(unstack_forest(forest)))
+    import torch.distributed as dist
+    return [(dist.get_rank(group), forest)]
+
+
+def _sum_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    """The reference's ``psum``: a sum over the group's ranks, in place
+    (no-op without a group)."""
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def forest_delete(forest: TreeArrays, xs, oids, *, group=None):
     """Delete a batch of ids from every shard that holds them, in place,
     through the no-underflow fast path (``smtree.delete_fast``): a row that
     would underflow leaves its shard as it was.  Returns (forest, found
-    [n] bool): found where some shard deleted the id."""
+    [n] bool): found where some shard deleted the id.  With a process
+    group, ``forest`` is this rank's tree and ``found`` is summed over the
+    ranks."""
     dev = forest.device
     xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
     oids = torch.as_tensor(oids, dtype=torch.int32, device=dev).reshape(-1)
     oids_h = oids.cpu().tolist()
-    found = np.zeros(len(oids_h), bool)
-    for t in unstack_forest(forest):
+    found = np.zeros(len(oids_h), np.int32)
+    for _, t in _local_shards(forest, group):
         # an id absent from a shard before the batch stays absent: only
         # the rows it may hold run the fast path
         held = torch.isin(oids, t.oid[t.valid]).cpu().numpy()
         for i in np.nonzero(held)[0]:
             _, hit, underflow, _ = smtree.delete_fast(t, xs[i], oids_h[i])
-            found[i] |= hit and not underflow
-    return forest, torch.from_numpy(found).to(dev)
+            found[i] += hit and not underflow
+    found = _sum_over_ranks(torch.from_numpy(found).to(dev), group)
+    return forest, found > 0
 
 
 def _validate_cohort(oids) -> None:
@@ -267,46 +290,100 @@ def _validate_cohort(oids) -> None:
                          "sentinel)")
 
 
-def forest_apply_mutations(forest: TreeArrays, ops, xs, oids, owner, *,
-                           validate: bool = False):
-    """A mixed insert/delete batch, in place: row i goes to shard
-    ``owner[i]`` only, through ``smtree.apply_mutations`` with splits and
-    merges off (as the reference's collective runs it).  Returns (forest,
-    statuses [B] int32): the owner's status, ST_NOP (0) where ``owner``
-    names no shard.  The batch must be a conflict-free cohort (unique,
-    non-negative ids); ``validate=True`` checks that first."""
-    if validate:
-        _validate_cohort(oids)
+def _owner_routed(forest: TreeArrays, owner, group, run) -> torch.Tensor:
+    """statuses [B] int32 of ``run(tree, rows)`` on each held shard's own
+    rows (``owner[i]`` names the shard), ST_NOP (0) on rows no shard owns,
+    summed over the ranks of ``group``."""
     dev = forest.device
-    ops = torch.as_tensor(ops, dtype=torch.int32, device=dev).reshape(-1)
-    xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
-    oids = torch.as_tensor(oids, dtype=torch.int32, device=dev).reshape(-1)
     owner_h = np.asarray(torch.as_tensor(owner).cpu(), np.int64).reshape(-1)
     status = torch.zeros(len(owner_h), dtype=torch.int32, device=dev)
-    for s, t in enumerate(unstack_forest(forest)):
+    for s, t in _local_shards(forest, group):
         rows = torch.from_numpy(np.nonzero(owner_h == s)[0]).to(dev)
         if len(rows):
-            _, st = smtree.apply_mutations(t, ops[rows], xs[rows], oids[rows],
-                                           splits=False, merges=False)
-            status[rows] = st
-    return forest, status
+            status[rows] = run(t, rows).to(dev)
+    return _sum_over_ranks(status, group)
 
 
-def forest_extract_objects(forest: TreeArrays, oids, owner):
+def _rows(dev, ops, xs, oids):
+    """A batch's ops, xs (when given) and oids as tensors on ``dev``."""
+    return (torch.as_tensor(ops, dtype=torch.int32, device=dev).reshape(-1),
+            None if xs is None else torch.as_tensor(xs, dtype=torch.float32,
+                                                    device=dev),
+            torch.as_tensor(oids, dtype=torch.int32, device=dev).reshape(-1))
+
+
+def forest_apply_mutations(forest: TreeArrays, ops, xs, oids, owner, *,
+                           validate: bool = False, group=None):
+    """A mixed insert/delete batch, in place: row i goes to shard
+    ``owner[i]`` only, through ``smtree.apply_mutations`` with splits and
+    merges off (as the reference's collective runs it; the overflow and
+    underflow rows go to ``forest_apply_splits``/``forest_apply_merges``).
+    Returns (forest, statuses [B] int32): the owner's status, ST_NOP (0)
+    where ``owner`` names no shard.  The batch must be a conflict-free
+    cohort (unique, non-negative ids); ``validate=True`` checks that first.
+    With a process group, ``forest`` is this rank's tree (shard = rank)."""
+    if validate:
+        _validate_cohort(oids)
+    ops, xs, oids = _rows(forest.device, ops, xs, oids)
+
+    def run(t, r):
+        return smtree.apply_mutations(t, ops[r], xs[r], oids[r],
+                                      splits=False, merges=False)[1]
+
+    return forest, _owner_routed(forest, owner, group, run)
+
+
+def forest_apply_splits(forest: TreeArrays, ops, xs, oids, owner, *,
+                        group=None):
+    """The forest's split front, in place: a compacted batch of ST_OVERFLOW
+    insert rows (log order, owner-routed as in ``forest_apply_mutations``)
+    through each shard's device split pass (``smtree.apply_splits``).
+    Returns (forest, statuses [K] int32): ST_SPLIT where the owner absorbed
+    the row, ST_OVERFLOW where its ring blocked (and on its later rows),
+    ST_NOP where no shard owns the row.  With a process group, ``forest``
+    is this rank's tree."""
+    ops, xs, oids = _rows(forest.device, ops, xs, oids)
+
+    def run(t, r):
+        return smtree.apply_splits(t, ops[r], xs[r], oids[r])[1]
+
+    return forest, _owner_routed(forest, owner, group, run)
+
+
+def forest_apply_merges(forest: TreeArrays, ops, oids, owner, *, group=None):
+    """The forest's merge front, in place: a compacted batch of
+    ST_UNDERFLOW delete rows (log order, owner-routed) through each shard's
+    device merge pass (``smtree.apply_merges``), which locates targets by
+    id alone.  Returns (forest, statuses [K] int32): ST_MERGE where the
+    owner absorbed the row, ST_NOTFOUND where it does not hold the id,
+    ST_NOP where no shard owns the row.  With a process group, ``forest``
+    is this rank's tree."""
+    ops, _, oids = _rows(forest.device, ops, None, oids)
+
+    def run(t, r):
+        return smtree.apply_merges(t, ops[r], oids[r])[1]
+
+    return forest, _owner_routed(forest, owner, group, run)
+
+
+def forest_extract_objects(forest: TreeArrays, oids, owner, *, group=None):
     """Owner-routed gather of stored vectors: shard ``owner[i]`` looks up
     ``oids[i]`` (``smtree.extract_objects``).  Returns (vecs [B, dim] f32,
     found [B] bool), zero rows where the owner does not hold the id.  The
     vectors are a sum over shards of the masked rows, as the reference's
-    ``psum``: with two or more shards a stored -0.0 comes back +0.0."""
+    ``psum``: with two or more shards a stored -0.0 comes back +0.0.  With
+    a process group, ``forest`` is this rank's tree and the sum runs over
+    the ranks."""
     dev = forest.device
     oids = torch.as_tensor(oids, dtype=torch.int32, device=dev).reshape(-1)
     owner = torch.as_tensor(owner, dtype=torch.int32, device=dev).reshape(-1)
     vecs = hits = None
-    for s, t in enumerate(unstack_forest(forest)):
+    for s, t in _local_shards(forest, group):
         mine = owner == s
         v, f = smtree.extract_objects(t, torch.where(mine, oids, -1))
         f = f & mine
         v = torch.where(f[:, None], v, 0.0)
         vecs = v if vecs is None else vecs + v
         hits = f.int() if hits is None else hits + f.int()
+    vecs, hits = _sum_over_ranks(vecs, group), _sum_over_ranks(hits, group)
     return vecs, hits > 0

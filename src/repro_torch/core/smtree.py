@@ -1,5 +1,6 @@
 """SM-tree engine in PyTorch: tree state, bulk build, cohort kNN/range
-descent, and the Insert/Delete fast paths.
+descent, the Insert/Delete fast paths, the batched mutation scan and the
+device split and merge passes.
 
 Port of ``repro/core/smtree.py``.  The tree is the reference's fixed-
 capacity structure of arrays (one row per node, one lane per entry), held
@@ -31,10 +32,15 @@ Differences from JAX carried over deliberately (each marked where handled):
   * JAX clamps out-of-range gathers and torch raises: every clamp of the
     reference is kept.
 
-Insert/Delete and the batched mutation apply (``apply_mutations``) mutate
-the tree's tensors in place (the reference returns a new pytree): the
-engine replaces its tree after each operation anyway, and in place a
-fast-path write touches a few rows instead of copying every array.
+Insert/Delete, the batched mutation apply (``apply_mutations``) and the
+split and merge passes (``apply_splits``, ``apply_merges``) mutate the
+tree's tensors in place (the reference returns a new pytree): the engine
+replaces its tree after each operation anyway, and in place a write
+touches a few rows instead of copying every array.  The per-tree scalars
+(``root``, ``height``, ``free_head``, ``n_nodes``) are written with
+``fill_``/``add_``, never rebound, because a forest shard's scalars are
+views into the stacked forest (core/distributed.py).  Only ``grow_tree``
+returns a new tree: it changes the shapes.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.metric import get_metric, make_metric
+from repro_torch.core.split import min_side_for
 from repro_torch.kernels.frontier import frontier_scores
 
 MAX_HEIGHT = 16          # supports capacity^15 objects; plenty
@@ -677,10 +684,21 @@ def _refresh_path_radii(tree: TreeArrays, pn: list[int], ps: list[int]):
         tree.radius[n, s] = r.clamp_min(0.0)
 
 
-def insert_fast(tree: TreeArrays, x, obj_id: int):
+# The entry fields a leaf-slot write moves.  The engine's fast paths
+# (``insert_fast``/``delete_fast``) write all five; the batched scan (the
+# reference's ``_apply_row``) only the first three, since leaf radius and
+# child rows hold 0.0 / -1 except for the stale bytes of a reused node row,
+# which it leaves where they are.
+_SLOT_FIELDS = ("vecs", "pdist", "oid", "radius", "child")
+_SCAN_FIELDS = _SLOT_FIELDS[:3]
+
+
+def insert_fast(tree: TreeArrays, x, obj_id: int, *,
+                _fields: tuple = _SLOT_FIELDS):
     """No-split insert, in place.  Returns (tree, fits, leaf_id).  When the
     leaf is full the tree is left unchanged with fits=False — the caller
-    runs the host-side split path."""
+    runs the host-side split path.  ``_fields`` is private: the batched
+    scan passes ``_SCAN_FIELDS``."""
     x = torch.as_tensor(x, dtype=torch.float32, device=tree.device)
     pn, ps, leaf = _descend_path(tree, x)
     cnt = int(tree.count[leaf])
@@ -694,11 +712,9 @@ def insert_fast(tree: TreeArrays, x, obj_id: int):
         pd = _metric_eval(tree.metric, x, pvec)
     else:
         pd = 0.0
-    tree.vecs[leaf, slot] = x
-    tree.radius[leaf, slot] = 0.0
-    tree.pdist[leaf, slot] = pd
-    tree.child[leaf, slot] = -1
-    tree.oid[leaf, slot] = int(obj_id)
+    values = dict(vecs=x, pdist=pd, oid=int(obj_id), radius=0.0, child=-1)
+    for f in _fields:
+        getattr(tree, f)[leaf, slot] = values[f]
     tree.valid[leaf, slot] = True
     tree.count[leaf] += 1
     _refresh_path_radii(tree, pn, ps)
@@ -718,12 +734,14 @@ def path_to_root(tree: TreeArrays, leaf: int):
     return chain_n[::-1] + pad, chain_s[::-1] + pad
 
 
-def _swap_remove(tree: TreeArrays, leaf: int, slot: int):
+def _swap_remove(tree: TreeArrays, leaf: int, slot: int,
+                 fields: tuple = _SLOT_FIELDS):
     """Remove entry ``slot`` of ``leaf``, in place: the leaf's last entry
-    fills the hole, then the tail slot is cleared (this order handles
-    slot == last), and the radii along the path to the root are refreshed."""
+    fills the hole (``fields`` of it), then the tail slot is cleared (this
+    order handles slot == last), and the radii along the path to the root
+    are refreshed."""
     last = int(tree.count[leaf]) - 1
-    for f in ("vecs", "radius", "pdist", "child", "oid"):
+    for f in fields:
         a = getattr(tree, f)
         a[leaf, slot] = a[leaf, last].clone()
     tree.valid[leaf, last] = False
@@ -762,10 +780,6 @@ ST_NOP, ST_APPLIED, ST_OVERFLOW, ST_UNDERFLOW, ST_NOTFOUND = 0, 1, 2, 3, 4
 ST_SPLIT = 5
 ST_MERGE = 6
 
-_NOT_PORTED_ITEM_9 = ("the device split and merge passes (splits=True / "
-                      "merges=True) are ROADMAP Queue 1 item 9, not ported "
-                      "yet; pass splits=False, merges=False")
-
 
 def _delete_row(tree: TreeArrays, oid: int, leaf: int, found: bool) -> int:
     """The delete half of the reference's ``_apply_row``, in place: the
@@ -778,7 +792,7 @@ def _delete_row(tree: TreeArrays, oid: int, leaf: int, found: bool) -> int:
     slot = int(torch.argmax(row_hit.to(torch.uint8)))   # first hit
     if int(tree.count[leaf]) - 1 < tree.min_fill and leaf != int(tree.root):
         return ST_UNDERFLOW
-    _swap_remove(tree, leaf, slot)
+    _swap_remove(tree, leaf, slot, _SCAN_FIELDS)
     return ST_APPLIED
 
 
@@ -824,6 +838,8 @@ def extract_objects(tree: TreeArrays, oids):
     return torch.where(found[:, None], rows, 0.0), found
 
 
+
+
 def apply_mutations(tree: TreeArrays, ops, xs, oids, *, splits: bool = True,
                     merges: bool = True):
     """Batched insert/delete apply, in place (the port's contract, as for
@@ -840,14 +856,16 @@ def apply_mutations(tree: TreeArrays, ops, xs, oids, *, splits: bool = True,
     ST_NOTFOUND; NOP rows report ST_NOP.  Statuses and tree bytes are the
     reference scan's (``repro/core/smtree.py:_apply_row``); its branch-free
     masked writes are host branches here, one row at a time: an insert row
-    is ``insert_fast`` (whose leaf-slot radius 0.0 and child -1 are what
-    leaf rows already hold), a delete row ``_delete_row``.
+    is ``insert_fast``, a delete row ``_delete_row``, each moving only the
+    slot fields that ``_apply_row`` moves (``_SCAN_FIELDS``: the stale
+    radius of a reused node row stays where it is).
 
-    ``splits``/``merges`` select the reference's device split and merge
-    passes, which are not ported yet: either one raises
-    ``NotImplementedError`` before any row is applied."""
-    if splits or merges:
-        raise NotImplementedError(_NOT_PORTED_ITEM_9)
+    With ``splits`` the overflow rows then go through the device split pass
+    (``resolve_overflows``) and come back ST_SPLIT where it absorbed them.
+    With ``merges`` the underflow rows then go through the device merge
+    pass (``resolve_underflows``, ST_MERGE), but only when no ST_OVERFLOW
+    row is left: the host plane (stream/batcher.py:escalate_rows) resolves
+    every overflow before any underflow, and the passes keep its order."""
     ops_h = np.asarray(torch.as_tensor(ops).cpu(), np.int64).reshape(-1)
     oids_t = torch.as_tensor(oids, dtype=torch.int32,
                              device=tree.device).reshape(-1)
@@ -860,10 +878,15 @@ def apply_mutations(tree: TreeArrays, ops, xs, oids, *, splits: bool = True,
         leaf0, found0 = leaf0.cpu().tolist(), found0.cpu().tolist()
     for i, op in enumerate(ops_h.tolist()):
         if op == OP_INSERT:
-            _, fits, _ = insert_fast(tree, xs[i], oids_h[i])
+            _, fits, _ = insert_fast(tree, xs[i], oids_h[i],
+                                     _fields=_SCAN_FIELDS)
             status[i] = ST_APPLIED if fits else ST_OVERFLOW
         elif op == OP_DELETE:
             status[i] = _delete_row(tree, oids_h[i], leaf0[i], found0[i])
+    if splits:
+        _, status, _ = resolve_overflows(tree, ops_h, xs, oids_h, status)
+    if merges and not (status == ST_OVERFLOW).any():
+        _, status, _ = resolve_underflows(tree, ops_h, oids_h, status)
     return tree, torch.from_numpy(status).to(tree.device)
 
 
@@ -874,17 +897,572 @@ def move_objects(donor: TreeArrays, receiver: TreeArrays, oids, *,
     row leaves an object visible twice across the pair, never zero times;
     ids absent from the donor, or whose insert or delete did not apply,
     report ``moved`` False.  ``splits``/``merges`` as in
-    ``apply_mutations``: only False is ported."""
-    if splits or merges:
-        raise NotImplementedError(_NOT_PORTED_ITEM_9)
+    ``apply_mutations``: an insert resolved by a split counts as placed, a
+    delete resolved by a merge as moved."""
     oids = torch.as_tensor(oids, dtype=torch.int32, device=donor.device)
     vecs, found = extract_objects(donor, oids)
     ins_ops = torch.where(found, OP_INSERT, OP_NOP)
     receiver, st_i = apply_mutations(
         receiver, ins_ops, vecs, torch.where(found, oids, -1),
-        splits=False, merges=False)
-    placed = found & (st_i.to(donor.device) == ST_APPLIED)
+        splits=splits, merges=merges)
+    st_i = st_i.to(donor.device)
+    placed = found & ((st_i == ST_APPLIED) | (st_i == ST_SPLIT))
     donor, st_d = apply_mutations(
         donor, torch.where(placed, OP_DELETE, OP_NOP), vecs,
-        torch.where(placed, oids, -1), splits=False, merges=False)
-    return donor, receiver, placed & (st_d == ST_APPLIED)
+        torch.where(placed, oids, -1), splits=splits, merges=merges)
+    return donor, receiver, placed & ((st_d == ST_APPLIED) | (st_d == ST_MERGE))
+
+
+# --------------------------------------------------------------------------
+# Device split and merge passes (in place; the reference's mesh-resident
+# mutation control plane).  Its branch-free masked writes are host branches
+# on a few scalars read per row and per level (parent, count, free_head,
+# height); every node row stays on the tree's device.
+# --------------------------------------------------------------------------
+def _at(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[i]`` for a 0-d index tensor, as a gather (no host sync)."""
+    return a.index_select(0, i.reshape(1).long()).squeeze(0)
+
+
+def _promote_and_partition(t: TreeArrays, D, Radd, uvalid, n, min_side,
+                           max_moves: int):
+    """mM_RAD promotion + generalized-hyperplane partition of one pending
+    entry set, decision for decision equal to core/split.py:minmax_split.
+
+    D: [m, m] pairwise distances of the pending reference values; Radd:
+    [m] the radius term of the scoring matrix C = D + Radd[None, :] (zeros
+    for leaf sets); uvalid: [m] member mask (all true for a split's cap + 1
+    rows, ``arange(2*cap) < n`` for a merge's union of two nodes); ``n``
+    and ``min_side`` the member count and the floor per side.  Returns
+    (pi, pj, sel_i, sel_j, pres_i, pres_j, n_i, n_j, r_i, r_j): the
+    promoted indices, each half's [cap] member indices in the host's slot
+    order with its occupancy mask, the halves' counts and covering radii.
+
+    The pair search is the reference's masked upper-triangle argmin in
+    row-major order over max(cand_ri, cand_rj): the first minimal pair, as
+    np.argmin over triu_indices.  The sequential min-fill rebalance is
+    ``max_moves`` masked steps (a step is a no-op once both sides hold
+    ``min_side``); ``stamp`` records the move order so that a stable
+    argsort gives the host's member order.  Tensors on the tree's device
+    throughout: no host sync."""
+    cap = t.capacity
+    m = D.shape[0]
+    dev = D.device
+    i32 = torch.int32
+    Cmat = D + Radd[None, :]                                     # [m, m]
+    toi3 = D[:, None, :] <= D[None, :, :]                        # [m, m, m]
+    kval = uvalid[None, None, :]
+    cand_ri = torch.where(toi3 & kval, Cmat[:, None, :], -_INF).amax(-1)
+    cand_rj = torch.where(~toi3 & kval, Cmat[None, :, :], -_INF).amax(-1)
+    cand_ri = torch.where(torch.isfinite(cand_ri), cand_ri, 0.0)
+    cand_rj = torch.where(torch.isfinite(cand_rj), cand_rj, 0.0)
+    triu = torch.ones((m, m), dtype=torch.bool, device=dev).triu(1)
+    best = torch.argmin(torch.where(triu & uvalid[None, :],
+                                    torch.maximum(cand_ri, cand_rj),
+                                    _INF).reshape(-1))
+    pi = (best // m).to(i32)
+    pj = (best % m).to(i32)
+    Dpi = _at(D, pi)
+    Dpj = _at(D, pj)
+    mask = (Dpi <= Dpj) & uvalid
+    stamp = torch.arange(m, dtype=i32, device=dev)
+    for k in range(max_moves):
+        n_i = mask.sum(dtype=i32)
+        need_i = n_i < min_side
+        do = need_i | ((n - n_i) < min_side)
+        cand_i = torch.argmin(torch.where(mask | ~uvalid, _INF, Dpi))
+        cand_j = torch.argmin(torch.where(mask, Dpj, _INF))
+        mv = torch.where(need_i, cand_i, cand_j).reshape(1)
+        mask = mask.index_put((mv,), torch.where(do, need_i, mask[mv]))
+        stamp = stamp.index_put((mv,), torch.where(do, m + k, stamp[mv]))
+    n_i = mask.sum(dtype=i32)
+    n_j = (n - n_i).to(i32)
+    big = 2 * m + 2
+    ord_i = torch.argsort(torch.where(mask, stamp, big), stable=True)
+    ord_j = torch.argsort(torch.where(mask | ~uvalid, big, stamp), stable=True)
+    slots = torch.arange(cap, dtype=i32, device=dev)
+    sel_i = ord_i[:cap].to(i32)    # n_i, n_j <= cap (min_side >= m - cap)
+    sel_j = ord_j[:cap].to(i32)
+    pres_i = slots < n_i
+    pres_j = slots < n_j
+    r_i = torch.where(pres_i, (Dpi + Radd)[sel_i.long()], -_INF).amax()
+    r_j = torch.where(pres_j, (Dpj + Radd)[sel_j.long()], -_INF).amax()
+    return pi, pj, sel_i, sel_j, pres_i, pres_j, n_i, n_j, r_i, r_j
+
+
+def _write_half(t: TreeArrays, row: int, V, R, C, O, Dp, sel, pres, n):
+    """The host's write_node: rewrite node ``row`` with the ``sel``-ordered
+    members of the pending set.  Slots beyond the new count keep their
+    stale vecs/radius/pdist as the host leaves them (oid/child/valid tails
+    are scrubbed), and each member child's parent/pslot pointers are
+    re-aimed (leaf members have child -1 and drop out)."""
+    sel = sel.long()
+    slots = torch.arange(t.capacity, dtype=torch.int32, device=t.device)
+    t.vecs[row] = torch.where(pres[:, None], V[sel], t.vecs[row])
+    t.radius[row] = torch.where(pres, R[sel], t.radius[row])
+    t.pdist[row] = torch.where(pres, Dp[sel], t.pdist[row])
+    kids = torch.where(pres, C[sel], -1)
+    t.child[row] = kids
+    t.oid[row] = torch.where(pres, O[sel], -1)
+    t.valid[row] = pres
+    t.count[row] = n
+    ok = kids >= 0
+    t.parent[kids[ok].long()] = row
+    t.pslot[kids[ok].long()] = slots[ok]
+
+
+def _pop_free(t: TreeArrays) -> int:
+    """Free-ring pop: the lowest free id (the ring is packed descending),
+    the one the host's ``alloc`` picks.  The popped slot becomes -1 and
+    ``n_nodes`` rises to cover the id."""
+    top = max(int(t.free_head) - 1, 0)
+    n2 = int(t.free_list[top])
+    t.free_list[top] = -1
+    t.free_head.sub_(1)
+    t.n_nodes.clamp_(min=n2 + 1)
+    return n2
+
+
+def _push_free(t: TreeArrays, f: int):
+    """Free-ring push of node id ``f`` at its descending-sorted position,
+    not on top: the ring stays ``packed_free_list(alive)``, so a later pop
+    allocates what the host would (DESIGN.md §12).  As in the reference,
+    everything from that position on, the tail beyond ``free_head``
+    included, moves up one slot."""
+    fh = int(t.free_head)
+    pos = int((t.free_list[:fh] > f).sum())
+    t.free_list[pos + 1:] = t.free_list[pos:-1].clone()
+    t.free_list[pos] = f
+    t.free_head.add_(1)
+
+
+def _split_row(t: TreeArrays, op: int, x, oid: int, blocked: bool):
+    """One overflow insert resolved on the tree's device: the body of
+    ``apply_splits``, bitwise to the host's ``insert_with_split``.
+
+    The row re-descends the live tree (earlier rows of the pass may have
+    made room) and appends when its leaf has room; otherwise it runs the
+    multi-level split: mM_RAD promotion with minmax_split's tie order and
+    member order, the lowest free id from the ring, the parent entry
+    replaced and the second promoted entry appended, or the parent's
+    entries spliced with it as the next level's pending set, or a new root.
+    Only a near-empty ring (``free_head < height + 1``: the host would grow
+    the node table) blocks the row, and with it every later overflow row of
+    the pass, to keep log order.  Returns (status, blocked)."""
+    cap = t.capacity
+    if op != OP_INSERT:
+        return ST_NOP, blocked
+    if blocked:
+        return ST_OVERFLOW, True
+    pn, ps, leaf = _descend_path(t, x)
+    cnt = int(t.count[leaf])
+    if cnt < cap:
+        # the host's re-check branch: append_entry + fold_up
+        parent = int(t.parent[leaf])
+        if parent >= 0:
+            pvec = t.vecs[parent, max(int(t.pslot[leaf]), 0)]
+            pd = _metric_eval(t.metric, x, pvec)
+        else:
+            pd = 0.0
+        t.vecs[leaf, cnt] = x
+        # explicit 0.0: a leaf in an ex-internal freed slot can carry a
+        # stale nonzero radius beyond its count, and the host writes zero
+        t.radius[leaf, cnt] = 0.0
+        t.pdist[leaf, cnt] = pd
+        t.oid[leaf, cnt] = oid
+        t.valid[leaf, cnt] = True
+        t.count[leaf] += 1
+        _refresh_path_radii(t, pn, ps)
+        return ST_SPLIT, False
+    # worst case allocations: one split per level and a new root
+    if int(t.free_head) < int(t.height) + 1:
+        return ST_OVERFLOW, True
+
+    # the pending set: the leaf's stored rows and the new entry.  R copies
+    # the stored radius row, stale nonzeros included (the host's write_node
+    # permutes them)
+    V = torch.cat([t.vecs[leaf], x[None, :]])
+    R = torch.cat([t.radius[leaf], t.radius.new_zeros(1)])
+    C = torch.cat([t.child[leaf], t.child.new_full((1,), -1)])
+    O = torch.cat([t.oid[leaf], t.oid.new_full((1,), oid)])
+    pend_leaf, cur = True, leaf
+    ms = min_side_for(cap + 1, cap, t.min_fill)
+    every = torch.ones(cap + 1, dtype=torch.bool, device=t.device)
+    while True:
+        D = _metric_eval(t.metric, V[:, None, :], V[None, :, :])
+        Radd = torch.zeros_like(R) if pend_leaf else R
+        (pi, pj, sel_i, sel_j, pres_i, pres_j, n_i, n_j, r_i,
+         r_j) = _promote_and_partition(t, D, Radd, every, cap + 1, ms,
+                                       max_moves=ms)
+        parent = int(t.parent[cur])         # read before any pointer write
+        pslot_c = max(int(t.pslot[cur]), 0)
+        n2 = _pop_free(t)
+        _write_half(t, cur, V, R, C, O, _at(D, pi), sel_i, pres_i, n_i)
+        _write_half(t, n2, V, R, C, O, _at(D, pj), sel_j, pres_j, n_j)
+        t.alive[n2] = True
+        t.is_leaf[n2] = pend_leaf
+        vi, vj = _at(V, pi), _at(V, pj)
+
+        if parent < 0:
+            # a new root (the host's alloc + two append_entry calls: slots
+            # 0/1 written, vecs/radius/pdist beyond them stay stale)
+            nr = _pop_free(t)
+            t.vecs[nr, 0] = vi
+            t.radius[nr, 0] = r_i
+            t.pdist[nr, 0] = 0.0
+            t.vecs[nr, 1] = vj
+            t.radius[nr, 1] = r_j
+            t.pdist[nr, 1] = 0.0
+            t.child[nr] = torch.tensor([cur, n2] + [-1] * (cap - 2),
+                                       dtype=torch.int32, device=t.device)
+            t.oid[nr] = -1
+            t.valid[nr] = False
+            t.valid[nr, :2] = True
+            t.count[nr] = 2
+            t.is_leaf[nr] = False
+            t.alive[nr] = True
+            t.parent[nr] = -1
+            t.pslot[nr] = -1
+            t.parent[cur] = t.parent[n2] = nr
+            t.pslot[cur] = 0
+            t.pslot[n2] = 1
+            t.root.fill_(nr)
+            t.height.add_(1)
+            # promoted radii are exact: nothing to fold
+            return ST_SPLIT, False
+
+        # replace the entry pointing at cur with promoted i (the splice
+        # below must see this write)
+        gp = int(t.parent[parent])
+        if gp >= 0:
+            gv = t.vecs[gp, max(int(t.pslot[parent]), 0)]
+            pd_i = _metric_eval(t.metric, vi, gv)
+            pd_j = _metric_eval(t.metric, vj, gv)
+        else:
+            pd_i = pd_j = 0.0
+        t.vecs[parent, pslot_c] = vi
+        t.radius[parent, pslot_c] = r_i
+        t.pdist[parent, pslot_c] = pd_i
+        t.child[parent, pslot_c] = cur
+        ap = int(t.count[parent])
+        if ap < cap:
+            # the parent has room: append promoted j, then fold from cur
+            t.vecs[parent, ap] = vj
+            t.radius[parent, ap] = r_j
+            t.pdist[parent, ap] = pd_j
+            t.child[parent, ap] = n2
+            t.oid[parent, ap] = -1
+            t.valid[parent, ap] = True
+            t.count[parent] += 1
+            t.parent[n2] = parent
+            t.pslot[n2] = ap
+            _refresh_path_radii(t, *path_to_root(t, cur))
+            return ST_SPLIT, False
+        # the parent is full: its (post-replacement) entries + promoted j
+        # are the next pending set; n2's parent pointer is set by the next
+        # level's _write_half, as on the host
+        V = torch.cat([t.vecs[parent], vj[None, :]])
+        R = torch.cat([t.radius[parent], r_j.reshape(1)])
+        C = torch.cat([t.child[parent], t.child.new_full((1,), n2)])
+        O = torch.cat([t.oid[parent], t.oid.new_full((1,), -1)])
+        pend_leaf, cur = False, parent
+
+
+def apply_splits(tree: TreeArrays, ops, xs, oids):
+    """The device split pass over a compacted batch of overflow inserts, in
+    place.  ops/xs/oids: [K] rows that ``apply_mutations`` reported
+    ST_OVERFLOW (pads: OP_NOP / oid -1), in log order.  Returns (tree,
+    statuses [K] int32): ST_SPLIT where the pass absorbed the row,
+    ST_OVERFLOW from the first row that a near-empty free ring blocks on
+    (and for every later insert row), ST_NOP for pads."""
+    ops_h = np.asarray(torch.as_tensor(ops).cpu(), np.int64).reshape(-1)
+    oids_h = np.asarray(torch.as_tensor(oids).cpu(), np.int64).reshape(-1)
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=tree.device)
+    status = np.zeros(len(ops_h), np.int32)
+    blocked = False
+    for i, op in enumerate(ops_h.tolist()):
+        status[i], blocked = _split_row(tree, op, xs[i], int(oids_h[i]),
+                                        blocked)
+    return tree, torch.from_numpy(status).to(tree.device)
+
+
+# The reference's fixed dispatch width of the split pass (one jit entry per
+# tree geometry).  The port's passes have nothing to compile: only the
+# forest's split front is cut in these widths (stream/pipeline.py).
+SPLIT_CHUNK = 8
+
+
+def split_chunks(n: int):
+    """Fixed-width cover of ``n`` rows (the last chunk padded by the
+    caller)."""
+    return [SPLIT_CHUNK] * ((n + SPLIT_CHUNK - 1) // SPLIT_CHUNK)
+
+
+def _rows_where(statuses, ops, status: int, op: int) -> np.ndarray:
+    statuses = np.asarray(statuses)
+    ops = np.asarray(torch.as_tensor(ops).cpu()).reshape(-1)
+    return np.nonzero((statuses == status) & (ops == op))[0]
+
+
+def resolve_overflows(tree: TreeArrays, ops, xs, oids, statuses):
+    """The batch's ST_OVERFLOW insert rows, compacted in log order, through
+    the device split pass.  statuses: [B] on the host.  Returns (tree,
+    statuses, n_resolved) with resolved rows re-marked ST_SPLIT.  One pass
+    over the compacted rows gives what the reference's chunked dispatch
+    gives: once a row blocks, the rest stay ST_OVERFLOW, in log order, for
+    the host plane."""
+    idx = _rows_where(statuses, ops, ST_OVERFLOW, OP_INSERT)
+    out = np.array(statuses, np.int32, copy=True)
+    if not len(idx):
+        return tree, out, 0
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=tree.device)
+    oids_h = np.asarray(torch.as_tensor(oids).cpu(), np.int32).reshape(-1)
+    rows = torch.from_numpy(idx).to(tree.device)
+    _, st = apply_splits(tree, np.full(len(idx), OP_INSERT, np.int32),
+                         xs[rows], oids_h[idx])
+    st = st.cpu().numpy()
+    out[idx[st == ST_SPLIT]] = ST_SPLIT
+    return tree, out, int((st == ST_SPLIT).sum())
+
+
+def _remove_entry(t: TreeArrays, node: int, s: int):
+    """The host's ``remove_entry``: swap-remove slot ``s`` of ``node`` (the
+    last entry fills the hole and a swapped internal child's pslot is
+    re-aimed), clear the tail slot, decrement the count; the write order
+    handles ``s == last``."""
+    last = max(int(t.count[node]) - 1, 0)
+    for f in ("vecs", "radius", "pdist", "child", "oid"):
+        a = getattr(t, f)
+        a[node, s] = a[node, last].clone()
+    c_sw = int(t.child[node, last])
+    if s != last and not bool(t.is_leaf[node]) and c_sw >= 0:
+        t.pslot[c_sw] = s
+    t.valid[node, last] = False
+    t.child[node, last] = -1
+    t.oid[node, last] = -1
+    t.count[node] -= 1
+
+
+def _free_node(t: TreeArrays, node: int):
+    """The host's ``free``: alive/valid cleared, count zeroed, parent/pslot
+    detached; vecs/radius/pdist/child/oid stay stale, as the host leaves
+    them.  Then the sorted free-ring push."""
+    t.alive[node] = False
+    t.valid[node] = False
+    t.count[node] = 0
+    t.parent[node] = -1
+    t.pslot[node] = -1
+    _push_free(t, node)
+
+
+def _merge_row(t: TreeArrays, op: int, oid: int) -> int:
+    """One underflow delete resolved on the tree's device: the body of
+    ``apply_merges``, bitwise to the host's ``delete_with_merge``.
+
+    The object is located again on the live tree (earlier rows may have
+    moved it across nodes), first hit in row-major order, and
+    swap-removed.  While the node underflows: the nearest sibling entry by
+    routing-object distance (first minimum, self excluded), then either a
+    merge into it (total fits: cur's entries appended in slot order, cur
+    freed onto the ring, the parent entry removed, the sibling entry's
+    radius refolded) or a redistribution (the union re-split by
+    minmax_split's rules across the same two nodes, both parent entries
+    rewritten).  Then the radius fold from the last node up and the
+    collapse of single-entry internal roots.  Merges only free nodes, so a
+    row never blocks.  Returns the status."""
+    cap = t.capacity
+    if op != OP_DELETE:
+        return ST_NOP
+    if oid < 0:                     # the pad sentinel never matches
+        return ST_NOTFOUND
+    hit = ((t.oid == oid) & t.valid).reshape(-1)
+    flat = int(torch.argmax(hit.to(torch.uint8)))   # first hit
+    if not bool(hit[flat]):
+        return ST_NOTFOUND
+    leaf, slot = divmod(flat, cap)
+    _remove_entry(t, leaf, slot)
+    slots = torch.arange(cap, dtype=torch.int32, device=t.device)
+    cur = leaf
+    while cur != int(t.root) and int(t.count[cur]) < t.min_fill:
+        p = int(t.parent[cur])
+        islot = max(int(t.pslot[cur]), 0)
+        m = int(t.count[p])
+        d = _metric_eval(t.metric, t.vecs[p, islot][None, :], t.vecs[p])
+        d = torch.where((slots < m) & (slots != islot), d, _INF)
+        j = int(torch.argmin(d))
+        sib = max(int(t.child[p, j]), 0)
+        cm = int(t.count[cur])
+        ns = int(t.count[sib])
+        total = ns + cm
+        if total <= cap:
+            # merge: cur's entries appended to sib in slot order
+            pd_m = _metric_eval(t.metric, t.vecs[cur], t.vecs[p, j][None, :])
+            for f, src in (("vecs", t.vecs[cur]), ("radius", t.radius[cur]),
+                           ("pdist", pd_m), ("child", t.child[cur]),
+                           ("oid", t.oid[cur])):
+                getattr(t, f)[sib, ns:total] = src[:cm].clone()
+            t.valid[sib, ns:total] = True
+            t.count[sib] += cm
+            kids = t.child[cur, :cm]
+            ok = kids >= 0
+            t.parent[kids[ok].long()] = sib
+            t.pslot[kids[ok].long()] = ns + slots[:cm][ok]
+            _free_node(t, cur)
+            _remove_entry(t, p, islot)
+            # removing islot may have moved entry j: re-read sib's pslot
+            jj = max(int(t.pslot[sib]), 0)
+            contrib = t.pdist[sib] + torch.where(t.is_leaf[sib], 0.0,
+                                                 t.radius[sib])
+            t.radius[p, jj] = torch.where(t.valid[sib], contrib, -_INF).amax()
+        else:
+            # redistribute: re-split the union (sib's entries first, then
+            # cur's) across the same two nodes, read before any write
+            M = 2 * cap
+            ks = torch.arange(M, device=t.device)
+            in_sib = ks < ns
+            src_row = torch.where(in_sib, sib, cur)
+            src_slot = torch.where(in_sib, ks, ks - ns).clamp(0, cap - 1)
+            V = t.vecs[src_row, src_slot]
+            R = t.radius[src_row, src_slot]
+            C = t.child[src_row, src_slot]
+            O = t.oid[src_row, src_slot]
+            D = _metric_eval(t.metric, V[:, None, :], V[None, :, :])
+            Radd = torch.zeros_like(R) if bool(t.is_leaf[cur]) else R
+            # min_side_for with the member count of this union
+            min_side = max(2, max(min(t.min_fill, total // 2), total - cap))
+            (pi, pj, sel_i, sel_j, pres_i, pres_j, n_i, n_j, r_i,
+             r_j) = _promote_and_partition(t, D, Radd, ks < total, total,
+                                           min_side, max_moves=cap)
+            _write_half(t, sib, V, R, C, O, _at(D, pi), sel_i, pres_i, n_i)
+            _write_half(t, cur, V, R, C, O, _at(D, pj), sel_j, pres_j, n_j)
+            vi, vj = _at(V, pi), _at(V, pj)
+            gp = int(t.parent[p])
+            if gp >= 0:
+                gv = t.vecs[gp, max(int(t.pslot[p]), 0)]
+                pd_i = _metric_eval(t.metric, vi, gv)
+                pd_j = _metric_eval(t.metric, vj, gv)
+            else:
+                pd_i = pd_j = 0.0
+            for s_, v, r, pd, c in ((j, vi, r_i, pd_i, sib),
+                                    (islot, vj, r_j, pd_j, cur)):
+                t.vecs[p, s_] = v
+                t.radius[p, s_] = r
+                t.pdist[p, s_] = pd
+                t.child[p, s_] = c
+                t.parent[c] = p
+                t.pslot[c] = s_
+        cur = p
+    _refresh_path_radii(t, *path_to_root(t, cur))
+    # root collapse, several levels after a deep cascade
+    while True:
+        old = int(t.root)
+        if bool(t.is_leaf[old]) or int(t.count[old]) != 1:
+            break
+        newr = int(t.child[old, 0])
+        t.root.fill_(newr)
+        t.height.sub_(1)
+        t.parent[newr] = -1
+        t.pslot[newr] = -1
+        _free_node(t, old)
+    return ST_MERGE
+
+
+def apply_merges(tree: TreeArrays, ops, oids):
+    """The device merge pass over a compacted batch of underflow deletes,
+    in place.  ops/oids: [K] rows that ``apply_mutations`` reported
+    ST_UNDERFLOW (pads: OP_NOP / oid -1), in log order; the target is
+    located by id alone, as the host's ``delete_with_merge`` does.  Returns
+    (tree, statuses [K] int32): ST_MERGE for resolved rows, ST_NOTFOUND for
+    targets that are gone, ST_NOP for pads.  No row ever blocks."""
+    ops_h = np.asarray(torch.as_tensor(ops).cpu(), np.int64).reshape(-1)
+    oids_h = np.asarray(torch.as_tensor(oids).cpu(), np.int64).reshape(-1)
+    status = np.array([_merge_row(tree, op, int(o))
+                       for op, o in zip(ops_h.tolist(), oids_h.tolist())],
+                      np.int32).reshape(-1)
+    return tree, torch.from_numpy(status).to(tree.device)
+
+
+# The reference's two dispatch widths of the merge pass (two jit entries
+# per geometry); as for SPLIT_CHUNK, only the forest's merge front is cut
+# in these widths.
+MERGE_CHUNK = 8
+MERGE_CHUNK_MAX = 64
+
+
+def merge_chunks(n: int):
+    """Dispatch-width cover of ``n`` rows (each chunk padded by the
+    caller): full MERGE_CHUNK_MAX chunks, then one more MAX chunk when the
+    rest would take more than two small ones, else small chunks."""
+    out = []
+    while n >= MERGE_CHUNK_MAX:
+        out.append(MERGE_CHUNK_MAX)
+        n -= MERGE_CHUNK_MAX
+    if n > 2 * MERGE_CHUNK:
+        out.append(MERGE_CHUNK_MAX)
+        n = 0
+    while n > 0:
+        out.append(MERGE_CHUNK)
+        n -= MERGE_CHUNK
+    return out
+
+
+def resolve_underflows(tree: TreeArrays, ops, oids, statuses):
+    """The batch's ST_UNDERFLOW delete rows, compacted in log order,
+    through the device merge pass.  statuses: [B] on the host.  Returns
+    (tree, statuses, n_resolved) with resolved rows re-marked ST_MERGE.
+    Call it only once no ST_OVERFLOW row is left: the host plane resolves
+    every overflow before any underflow, and the passes keep its order."""
+    idx = _rows_where(statuses, ops, ST_UNDERFLOW, OP_DELETE)
+    out = np.array(statuses, np.int32, copy=True)
+    if not len(idx):
+        return tree, out, 0
+    oids_h = np.asarray(torch.as_tensor(oids).cpu(), np.int32).reshape(-1)
+    _, st = apply_merges(tree, np.full(len(idx), OP_DELETE, np.int32),
+                         oids_h[idx])
+    out[idx] = st.cpu().numpy()
+    return tree, out, len(idx)
+
+
+# --------------------------------------------------------------------------
+# Free-ring headroom (node-table growth off the hot path)
+# --------------------------------------------------------------------------
+def needs_headroom(tree: TreeArrays, *, frac: float = 1 / 16) -> bool:
+    """True when the free ring is low enough that a batch could block the
+    split pass.  The watermark is ``frac`` of the node table, floored at
+    MAX_HEIGHT + 1 (the most one overflow row can allocate), so growth
+    comes before any row can block.  Reads one scalar."""
+    wm = max(MAX_HEIGHT + 1, int(tree.max_nodes * frac))
+    return int(tree.free_head) < wm
+
+
+def grow_tree(tree: TreeArrays, *, factor: int = 2) -> TreeArrays:
+    """A new tree with ``factor * max_nodes`` node rows (the shapes change,
+    so this one returns a new tree): the new rows are dead, laid out as the
+    host's ``_grow`` lays them out (child/oid/parent/pslot -1, is_leaf
+    True), and the free ring is recomputed.  The new ids are the highest,
+    so they join the descending ring at the bottom and no allocation
+    decision before growth changes.  The tables are padded on the tree's
+    device."""
+    if factor < 2:
+        raise ValueError(f"factor must be >= 2, got {factor}")
+    N = tree.max_nodes
+    fields = {}
+    for name in NODE_TABLE_FIELDS:
+        if name == "free_list":
+            continue
+        a = getattr(tree, name)
+        fill = (-1 if name in ("child", "oid", "parent", "pslot")
+                else 1 if name == "is_leaf" else 0)
+        pad = torch.full((N * (factor - 1),) + a.shape[1:], fill,
+                         dtype=a.dtype, device=a.device)
+        fields[name] = torch.cat([a, pad])
+    dead = torch.nonzero(~fields["alive"]).reshape(-1).flip(0)
+    free_list = torch.full((N * factor,), -1, dtype=torch.int32,
+                           device=tree.device)
+    free_list[:dead.shape[0]] = dead.to(torch.int32)
+    free_head = torch.tensor(dead.shape[0], dtype=torch.int32,
+                             device=tree.device)
+    return dataclasses.replace(
+        tree, **fields, free_list=free_list, free_head=free_head,
+        root=tree.root.clone(), n_nodes=tree.n_nodes.clone(),
+        height=tree.height.clone(), max_nodes=N * factor)

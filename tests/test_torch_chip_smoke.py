@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(n=3000, dims=6, capacity=8, b_bench=16, b_exact=8, b_parity=8,
             b_recheck=8, n_small=1000, kernel_b=8, kernel_F=8, kernel_N=50,
             dist_nq=16, dist_ne=64, dist_path_nq=8, dist_path_ne=200, n_insert=40,
-            timing_reps=2)
+            sm_rows=400, sm_min_rows=10, timing_reps=2)
 LM_TINY = dict(
     arch="qwen2.5-3b", smoke=True, prefill_b=2, prefill_s=16,
     serve_argv=["--knn", "--batch", "2", "--prompt-len", "4", "--steps", "3"],
@@ -62,11 +62,21 @@ def _rehearse(call: str, keep: tuple = ()):
 
 
 def test_index_slice_rehearses_on_the_cpu():
-    phases, rows, replay, dist = _rehearse(f"run({TINY!r}, 'cpu')",
-                                           keep=("frontier_replay_index", "kernel_distance"))
+    phases, rows, replay, dist, sm = _rehearse(
+        f"run({TINY!r}, 'cpu')",
+        keep=("frontier_replay_index", "kernel_distance", "device_split_merge"))
     assert phases == ["kernel_frontier", "kernel_distance", "build_tree",
                       "knn_bench_geometry", "knn_exact_geometry", "range_search",
-                      "insert_delete", "frontier_replay_index", "descent_kernel_vs_plain"]
+                      "insert_delete", "frontier_replay_index", "device_split_merge",
+                      "descent_kernel_vs_plain"]
+    # the cohort through the device passes, held against the host plane
+    assert sm["bitwise_vs_host_plane"] and sm["validate"] and sm["recheck_rows_bitwise"] > 0
+    assert sm["resolved_by_split"] >= TINY["sm_min_rows"] <= sm["resolved_by_merge"]
+    assert sm["split_pass"]["rows"] == sm["scan_statuses"]["overflow"] > 0
+    assert sm["merge_pass"]["rows"] == sm["scan_statuses"]["underflow"] > 0
+    assert sm["split_pass"]["internal_nodes_added"] > 0 and sm["merge_pass"]["merges"] > 0
+    assert sm["merge_pass"]["redistributions"] > 0
+    assert sm["host_plane"]["rows"] == sm["split_pass"]["rows"] + sm["merge_pass"]["rows"]
     # one cohort's frontiers at each geometry, replayed level by level: the
     # root level unfiltered, then every internal level and the leaf chunks
     res = replay["results"]
@@ -110,7 +120,14 @@ def test_forest_pass_rehearses_on_the_cpu():
     assert "rows_checked" not in perq["results"]["bench"]     # timed, not compared
     assert mut["replay_bitwise"] and mut["extract"]["bitwise"]
     assert sum(mut["statuses"].values()) == FOREST_TINY["n_insert"] + FOREST_TINY["n_delete"]
-    assert mut["escalation_rows_left"] == mut["statuses"]["overflow"] + mut["statuses"]["underflow"]
+    # the split and merge fronts take every escalated row of the scan
+    fronts = mut["fronts"]
+    assert fronts["split"]["rows"] == mut["statuses"]["overflow"]
+    assert fronts["merge"]["rows"] == mut["statuses"]["underflow"]
+    assert fronts["shards_bitwise_vs_host_plane"] == FOREST_TINY["n_shards"]
+    assert mut["escalation_rows_left"] == 0
+    assert fronts["split"]["resolved"] + fronts["merge"]["resolved"] == (
+        mut["statuses"]["overflow"] + mut["statuses"]["underflow"])
     assert set(counts) == {"launches", "knn", "scan"}      # launches count on the card only
 
 
@@ -134,10 +151,13 @@ def test_forest_counts_join_the_index_rows():
 
 def test_lm_slice_rehearses_on_the_cpu():
     cfg = json.loads(json.dumps(LM_TINY))
-    phases, rows = _rehearse(f"run_lm({cfg!r}, 'cpu')")
+    phases, rows, ev = _rehearse(f"run_lm({cfg!r}, 'cpu')", keep=("knnlm_batched_evict",))
     assert phases == ["kernel_frontier_wide", "kernel_flash", "kernel_distance_prune",
                       "lm_serve", "knnlm_datastore", "lm_path_launches",
-                      "frontier_replay"]
+                      "knnlm_batched_evict", "frontier_replay"]
+    assert ev["deletes"] == LM_TINY["ds_evict"] == sum(ev["statuses"].values())
+    assert ev["validate"] and ev["live_ids_equal_evict_before"]
+    assert set(ev["retrieval"]) == {f"b{b}" for b in LM_TINY["ret_bs"]}
     assert [r["name"] for r in rows] == [
         "frontier_scores[wide]", "frontier_scores[wide,parent_prune]",
         "pairwise_distance_prune", "flash_attention_fwd"]

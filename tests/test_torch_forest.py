@@ -25,6 +25,7 @@ from repro_torch.core import distributed as TD  # noqa: E402
 from repro_torch.core import smtree as T  # noqa: E402
 from repro_torch.core.convert import (forest_from_numpy,  # noqa: E402
                                       tree_from_numpy, tree_to_numpy)
+from repro_torch.core.engine import SMTreeEngine  # noqa: E402
 from repro_torch.data.datagen import clustered, uniform  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,9 +68,34 @@ def _inputs():
     # the extract front: the -0.0 row, held ids, a wrong owner, absent, pads
     ex_oids = np.array([5, 6, 7, 11, 2999, 12, 77_777, -1], np.int32)
     ex_owner = np.array([1, 2, 3, 3, 3, 1, 0, 0], np.int32)
+    # the unequal forest's split front: piles of six on four leaves of
+    # shard 2 (a root of six entries at capacity 8: it overflows and a new
+    # root grows inside the stack) and one pile on shard 0
+    trees = _unequal_trees(T, XU, device="cpu")
+    lo2 = sum(UNEQUAL_SIZES[:2])
+    t2 = trees[2]
+    leaves2 = [n for n in range(t2.max_nodes) if bool(t2.alive[n] & t2.is_leaf[n])]
+    centres = [int(t2.oid[n, 0]) for n in leaves2[:4]] + [0]
+    g_xs = np.vstack([XU[c] + rng.normal(0, 1e-3, (6, 10)) for c in centres])
+    g_oids = (80_000 + np.arange(len(g_xs))).astype(np.int32)
+    g_owner = np.array([2] * 24 + [0] * 6, np.int32)
+    # the merge front: all but three of shard 2's objects (cascading merges
+    # down to a root collapse inside the stack) and a fifth of shard 3's
+    lo3 = lo2 + UNEQUAL_SIZES[2]
+    c_oids = np.concatenate([np.arange(lo2, lo3 - 3),
+                             np.arange(lo3, lo3 + UNEQUAL_SIZES[3], 5)]).astype(np.int32)
+    c_owner = np.where(c_oids < lo3, 2, 3).astype(np.int32)
     return dict(X=X, Q=Q, XU=XU, QU=QU, del_oids=del_oids, del_xs=del_xs,
                 ops=ops, oids=oids, xs=xs, owner=owner, ex_oids=ex_oids,
-                ex_owner=ex_owner)
+                ex_owner=ex_owner, g_ops=np.full(30, J.OP_INSERT, np.int32),
+                g_xs=g_xs.astype(np.float32), g_oids=g_oids, g_owner=g_owner,
+                c_ops=np.full(len(c_oids), J.OP_DELETE, np.int32),
+                c_xs=XU[c_oids], c_oids=c_oids, c_owner=c_owner)
+
+
+def _escalation_rows(st, ops, status, op):
+    """The compacted rows of one escalation kind, in log order."""
+    return np.nonzero((np.asarray(st) == status) & (np.asarray(ops) == op))[0]
 
 
 def _unequal_trees(mod, XU, **kw):
@@ -136,6 +162,30 @@ with use_mesh(mesh):
     save("apply_forest_", f3)
     v, f = D.forest_extract_objects(forest, mesh, inp["ex_oids"], inp["ex_owner"])
     out["ex_vecs"], out["ex_found"] = np.asarray(v), np.asarray(f)
+
+    # the fast scan, then the split front on its overflow rows, then the
+    # merge front on its underflow rows (none overflow by then)
+    def fronts(name, f, p):
+        f, st = D.forest_apply_mutations(f, mesh, inp[p + "ops"], inp[p + "xs"],
+                                         inp[p + "oids"], inp[p + "owner"])
+        st = np.asarray(st)
+        out[name + "_scan_status"] = st
+        for kind, code, op in (("split", J.ST_OVERFLOW, J.OP_INSERT),
+                               ("merge", J.ST_UNDERFLOW, J.OP_DELETE)):
+            idx = np.nonzero((st == code) & (inp[p + "ops"] == op))[0]
+            if not len(idx):
+                continue
+            args = [inp[p + k][idx] for k in ("ops", "xs", "oids", "owner")]
+            if kind == "split":
+                f, s2 = D.forest_apply_splits(f, mesh, *args)
+            else:
+                f, s2 = D.forest_apply_merges(f, mesh, args[0], *args[2:])
+            out[name + "_" + kind + "_status"] = np.asarray(s2)
+            save(name + "_" + kind + "_forest_", f)
+
+    fronts("eq", fresh(), "")
+    fronts("grow", D.place_forest(D.stack_trees(trees), mesh), "g_")
+    fronts("collapse", D.place_forest(D.stack_trees(trees), mesh), "c_")
 np.savez(sys.argv[2], **out)
 print("DONE")
 """
@@ -405,3 +455,51 @@ def test_forest_extract_objects_sums_over_shards(ref):
     assert vecs.numpy().tobytes() == out["ex_vecs"].tobytes()
     assert not np.signbit(vecs[0, :3].numpy()).any()
     assert np.signbit(inp["X"][5, :3]).all()
+
+
+# --------------------------------------------------------------------------
+# the split and merge fronts
+# --------------------------------------------------------------------------
+FRONTS = {"eq": "", "grow": "g_", "collapse": "c_"}
+
+
+@pytest.mark.parametrize("case", sorted(FRONTS))
+def test_forest_split_and_merge_fronts_bitwise(ref, case):
+    """The fast scan, the split front on its overflow rows, then the merge
+    front on its underflow rows, as the stream pipeline orders them:
+    statuses and every field after each front bitwise to the JAX mesh
+    forest.  On the unequal forest, shard 2's root grows inside the stack
+    (grow) or collapses to a leaf (collapse)."""
+    inp, out = ref
+    p = FRONTS[case]
+    forest = (port_forest(inp) if case == "eq" else
+              TD.stack_trees(_unequal_trees(T, inp["XU"], device="cpu")))
+    h0 = forest.height.clone()
+    ops, xs, oids, owner = (inp[p + k] for k in ("ops", "xs", "oids", "owner"))
+    forest, st = TD.forest_apply_mutations(forest, ops, xs, oids, owner)
+    np.testing.assert_array_equal(st.numpy(), out[case + "_scan_status"])
+    ran = []
+    for kind, code, op in (("split", T.ST_OVERFLOW, T.OP_INSERT),
+                           ("merge", T.ST_UNDERFLOW, T.OP_DELETE)):
+        idx = _escalation_rows(st, ops, code, op)
+        if not len(idx):
+            continue
+        if kind == "split":
+            forest, s2 = TD.forest_apply_splits(forest, ops[idx], xs[idx], oids[idx],
+                                                owner[idx])
+            assert set(s2.tolist()) == {T.ST_SPLIT}
+        else:
+            forest, s2 = TD.forest_apply_merges(forest, ops[idx], oids[idx], owner[idx])
+            assert set(s2.tolist()) == {T.ST_MERGE}
+        assert s2.dtype == torch.int32
+        np.testing.assert_array_equal(s2.numpy(), out[f"{case}_{kind}_status"])
+        assert_forest_equals(forest, out, f"{case}_{kind}_forest_")
+        ran.append(kind)
+    assert ran == {"eq": ["split", "merge"], "grow": ["split"],
+                   "collapse": ["merge"]}[case]
+    if case == "grow":
+        assert int(forest.height[2]) == int(h0[2]) + 1
+    if case == "collapse":
+        assert int(h0[2]) == 2 and int(forest.height[2]) == 1
+    for t in TD.unstack_forest(forest):
+        SMTreeEngine(t).validate()

@@ -45,6 +45,16 @@ def test_port_runs_with_jax_blocked_and_loads_no_reference_module():
         assert eng.validate()
         forest = build_forest(X, 3, capacity=8, device="cpu")
         assert forest_knn(forest, X[:2], k=3)[1].shape == (2, 3)
+        # the device passes and the host plane (repro_torch.stream)
+        import repro_torch.stream
+        from repro_torch.core import smtree
+        ops = np.array([smtree.OP_INSERT] * 12 + [smtree.OP_DELETE] * 3, np.int32)
+        xs = np.vstack([X[1] + 1e-4 * np.arange(12)[:, None], X[2:5]]).astype(np.float32)
+        oids = np.concatenate([20_000 + np.arange(12), [2, 3, 4]]).astype(np.int32)
+        _, st = smtree.apply_mutations(eng.tree, ops, xs, oids)
+        assert smtree.ST_SPLIT in st.tolist()
+        left = st.numpy().copy()
+        assert repro_torch.stream.escalate_rows(eng.tree, left, ops, xs, oids) is eng.tree
         bad = sorted(m for m, v in sys.modules.items() if v is not None and
                      (m == "jax" or m.startswith("jax.") or m == "repro"
                       or m.startswith("repro.")))

@@ -467,6 +467,46 @@ def test_forest_fronts_on_card_match_cpu(cuda):
     assert torch.equal(ex[0][0].cpu(), ex[1][0]) and torch.equal(ex[0][1].cpu(), ex[1][1])
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_split_merge_passes_on_card_match_cpu(cuda, metric):
+    """``apply_mutations`` with the device split and merge passes, and the
+    forest's split and merge fronts, give the CPU's statuses and tree bytes
+    on the card."""
+    X = clustered(3000, dims=20, seed=8)
+    rng = np.random.default_rng(8)
+    centres = np.arange(0, 600, 61)
+    piles = np.vstack([X[i] + rng.normal(0, 1e-4, (14, 20)) for i in centres])
+    dels = rng.choice(3000, 1200, replace=False)
+    ops = np.concatenate([np.full(len(piles), smtree.OP_INSERT),
+                          np.full(len(dels), smtree.OP_DELETE)]).astype(np.int32)
+    oids = np.concatenate([10_000 + np.arange(len(piles)), dels]).astype(np.int32)
+    xs = np.vstack([piles, X[dels]]).astype(np.float32)
+    # a forest shard holds object i % 4: each pile goes to its centre's
+    owner = np.concatenate([np.repeat(centres % 4, 14), dels % 4]).astype(np.int32)
+    order = rng.permutation(len(ops))
+    ops, oids, xs, owner = ops[order], oids[order], xs[order], owner[order]
+    trees = [smtree.bulk_build(X, capacity=16, metric=metric, fill_frac=0.6, device=dev)
+             for dev in (cuda, "cpu")]
+    sts = [smtree.apply_mutations(t, ops, xs, oids)[1] for t in trees]
+    assert torch.equal(sts[0].cpu(), sts[1])
+    assert {smtree.ST_SPLIT, smtree.ST_MERGE} <= set(sts[1].tolist())
+    for name in smtree.ARRAY_FIELDS:
+        assert torch.equal(getattr(trees[0], name).cpu(), getattr(trees[1], name)), name
+    forests = [fd.build_forest(X, 4, capacity=16, metric=metric, device=dev)
+               for dev in (cuda, "cpu")]
+    st = fd.forest_apply_mutations(forests[1], ops, xs, oids, owner)[1].numpy()
+    fd.forest_apply_mutations(forests[0], ops, xs, oids, owner)
+    over = np.nonzero(st == smtree.ST_OVERFLOW)[0]
+    under = np.nonzero(st == smtree.ST_UNDERFLOW)[0]
+    assert len(over) and len(under)
+    for f in forests:
+        a = fd.forest_apply_splits(f, ops[over], xs[over], oids[over], owner[over])[1]
+        b = fd.forest_apply_merges(f, ops[under], oids[under], owner[under])[1]
+        assert set(a.tolist()) == {smtree.ST_SPLIT} and set(b.tolist()) == {smtree.ST_MERGE}
+    for name in smtree.ARRAY_FIELDS:
+        assert torch.equal(getattr(forests[0], name).cpu(), getattr(forests[1], name)), name
+
+
 def _qkv(rng, dev, b, h, hk, sq, sk, d, dtype):
     t = lambda *shape: torch.from_numpy(
         rng.normal(size=shape).astype(np.float32)).to(dev, dtype)

@@ -125,21 +125,6 @@ def test_apply_mutations_matches_one_row_at_a_time_fast_paths():
     assert digest_of(a) == digest_of(b)
 
 
-def test_splits_and_merges_raise_before_any_row():
-    X = uniform(300, dims=4, seed=1)
-    tt = T.bulk_build(X, capacity=8, device="cpu")
-    before = digest_of(tt)
-    ops = np.array([T.OP_INSERT, T.OP_DELETE], np.int32)
-    xs = np.vstack([X[0] + 0.1, X[1]]).astype(np.float32)
-    oids = np.array([5000, 1], np.int32)
-    for kw in ({}, dict(splits=True, merges=False), dict(splits=False, merges=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            T.apply_mutations(tt, ops, xs, oids, **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            T.move_objects(tt, T.bulk_build(X, capacity=8, device="cpu"), oids, **kw)
-    assert digest_of(tt) == before
-
-
 def test_locate_slots_first_hit_pads_and_empty():
     """Stored duplicates of one id: the lowest flat slot wins.  Negative
     requested ids never match, and an empty batch is fine."""
