@@ -73,14 +73,16 @@ and read just after, so that the index slice's counts stay comparable:
   F4. forest_mutations: 2,048 inserts of new ids and 2,048 deletes, owner
       routed, through ``forest_apply_mutations``, statuses and every
       field bitwise against the same log one row at a time through
-      ``insert_fast``/``delete_fast``; ``forest_extract_objects`` of 256
-      live ids against their stored rows; the cohort's overflow rows
-      through ``forest_apply_splits`` in ``split_chunks`` widths, then its
-      underflow rows through ``forest_apply_merges`` in ``merge_chunks``
-      widths (the stream pipeline's order), every shard held bitwise
-      against its rows through ``escalate_rows``, and the escalation rows
-      left; the exact kNN check again against a scan of the live set; then
-      the pass's launch counts.
+      ``insert_fast``/``delete_fast``; then the same log, from the same
+      shards, through both planes of ``StreamingForest`` (``stream_planes``):
+      the stacked plane (the scan front, the overflow rows through
+      ``forest_apply_splits`` in ``split_chunks`` widths, the underflow rows
+      through ``forest_apply_merges`` in ``merge_chunks`` widths) and the
+      host plane (per-shard batchers), statuses and shards held bitwise
+      between them, and the rows left to the host plane;
+      ``forest_extract_objects`` of 256 live ids against their stored rows;
+      the exact kNN check again against a scan of the live set; then the
+      pass's launch counts.
 
 The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
 
@@ -107,7 +109,8 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
   11. knnlm_datastore: 65,536 keys tapped from the model's final hidden
       states (32 x 2048 synthetic tokens), bulk build, retrieval at b=4
       and b=64 (k=8, F=128) with the kernel descent held bitwise against
-      the plain-scorer descent, evict_before(1024) through Delete,
+      the plain-scorer descent, evict_before(256) through Delete (cut from
+      1,024 to keep the run under ~450 s; the batched paths keep 1,024),
       validate(), and the bitwise check again; then the slice's launch
       counts;
   and, outside the counts,
@@ -128,13 +131,45 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
       card: ``device_ms``), live evaluations, pairs, distinct nodes and
       bound for each level and summed over a retrieval.
 
+The stream path (``run_stream``), launch counters zeroed just before and
+read just after, apart from the other paths':
+
+  S1. stream_datastore: the phase-11 store (a copy taken before its
+      eviction) through ``enable_stream`` with a WAL and checkpoints:
+      ``evict_batch`` of the 1,024 ids phase 11 evicts (live ids: every id
+      from 1,024 on), then ``add_batch`` of 1,024 new hidden states, each
+      beside an epoch pinned before it whose ``tree_digest`` must not
+      change; seconds per batch split into the ``mutation.wal_append``,
+      ``mutation.apply`` (the per-batch copy included) and
+      ``mutation.publish`` spans, the copy alone, rows escalated to the
+      host plane, WAL bytes, device bytes of the resident epochs; the
+      overflow share at b=64 by F (128 .. 8192); retrieval at b=4 and b=64
+      on the pinned epoch, kernel descent bitwise to the plain one, with
+      ``knn_logits`` ms; a snapshot, two more batches, then
+      ``StreamingEngine.restore`` + the WAL tail and a ``Replica`` tailing
+      the same WAL, each equal to the live engine's (seq, digest);
+  S3. lm_serve_stream: ``launch/serve`` with ``--knn --knn-mutate --obs``
+      and with ``--knn-shards 4`` on the phase-10 weights: ms per decode
+      step beside phase 10's, the obs snapshot's stream/wal/epoch rows;
+  S2. stream_forest: the 1,000,000 objects over 8 shards as a
+      ``StreamingForest`` (incremental, max skew 1.3, 256 objects at
+      least; WAL and checkpoints): 32,768 deletes of shard 0's ids in 8
+      batches of 4,096, ``maintenance()`` after each, the first 2 batches
+      through both planes held bitwise; 32 migration steps with a snapshot
+      after the 16th, then restore + the WAL tail equal to the live forest
+      (the crash drill); forest kNN on a pinned epoch at b=1024, F=64
+      through the kernels bitwise to the plain scorer, and at the smallest
+      exact F against ``brute_force_knn`` of the live set; ms per stream
+      row, per migration step, the skew before and after; one
+      stop-the-world rebuild on the side, timed.
+
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
-library ms; the narrow frontier rows and the distance scan count the index
-slice in ``launches`` and each pass apart in ``launches_by_path``
-(``index``, ``forest``); the distance scan at the index path's shape, with its
-device ms and its synthetic-shape row),
+library ms; ``launches_by_path`` gives every path's count apart: ``index``
+and ``forest`` for the narrow rows and the scan, ``lm`` for the LM rows,
+and ``stream`` for all; the distance scan at the index path's shape, with
+its device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
 result line.
@@ -142,7 +177,7 @@ result line.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
+import copy
 import json
 import subprocess
 import sys
@@ -166,7 +201,10 @@ FOREST_FULL = dict(n=1_000_000, dims=20, capacity=32, n_shards=8, b_bench=1024,
 LM_FULL = dict(
     arch="qwen2.5-3b", smoke=False, prefill_b=4, prefill_s=2048,
     serve_argv=["--knn"],                 # b=4, prompt 32, 16 steps
-    ds_seqs=32, ds_len=2048, ds_chunk=4, ds_evict=1024, ret_bs=(4, 64),
+    # ds_evict: the batched evictions' count (11b, S1); ds_evict_before:
+    # phase 11's one-Delete-at-a-time evict_before, cut from 1,024 to 256
+    # ids (~140 s to ~35 s) to keep the whole run under ~450 s
+    ds_seqs=32, ds_len=2048, ds_chunk=4, ds_evict=1024, ds_evict_before=256, ret_bs=(4, 64),
     wide_b=64, wide_F=128, wide_cap=32, wide_N=4096, wide_dims=(2048, 896, 1023),
     flash_cases={                         # b, h, hk, sq, sk, d, causal, dtype
         "path_f32": (4, 16, 16, 2048, 2048, 128, True, "float32"),
@@ -481,12 +519,6 @@ def split_merge_probe(sync):
         rec[f"ms_per_{kind}_row"] = rec[kind + "_seconds"] * 1e3 / n if n else None
 
 
-def clone_tree(t):
-    """A copy of a tree whose tensors share nothing with ``t``."""
-    from repro_torch.core.smtree import ARRAY_FIELDS
-    return dataclasses.replace(t, **{f: getattr(t, f).clone() for f in ARRAY_FIELDS})
-
-
 def split_merge_cohort(tree, Xall, n_rows: int, first_id: int, rng):
     """A conflict-free cohort of about ``n_rows`` rows on the leaves' own
     structure (read from the tree once, on the host): half inserts of new
@@ -553,7 +585,7 @@ def split_merge_phase(cfg: dict, eng, Xall, keep, Qb, F_exact: int, check_exact,
     rng = np.random.default_rng(21)
     ops, xs, oids = split_merge_cohort(eng.tree, Xall, cfg["sm_rows"], len(Xall), rng)
     inserted = oids[ops == smtree.OP_INSERT]
-    tree_a, tree_b = clone_tree(eng.tree), clone_tree(eng.tree)
+    tree_a, tree_b = smtree.clone_tree(eng.tree), smtree.clone_tree(eng.tree)
 
     # clone A: the fast scan, then the device split and merge passes
     with split_merge_probe(sync) as probe:
@@ -1205,8 +1237,9 @@ def run_forest(cfg: dict, device: str):
     oids = np.concatenate([new_ids, victims])[order].astype(np.int32)
     xs = np.vstack([ins_x, X[victims]])[order]
     owner = (oids % S).astype(np.int32)
-    replay = dataclasses.replace(forest, **{f: getattr(forest, f).clone()
-                                            for f in smtree.ARRAY_FIELDS})
+    # the stream plane's two planes start from the forest as it is now
+    base = fd.unstack_forest(smtree.clone_tree(forest))
+    replay = smtree.clone_tree(forest)
     (_, st), mut_s = wall(lambda: fd.forest_apply_mutations(
         forest, ops, xs, oids, owner, validate=True))
     st = st.cpu().numpy()
@@ -1229,11 +1262,14 @@ def run_forest(cfg: dict, device: str):
     for f in smtree.ARRAY_FIELDS:
         check(torch.equal(getattr(forest, f), getattr(replay, f)),
               f"forest field {f} differs from the one-row replay")
-    del replay, shards
+    del replay, shards, forest
     scan_st = st
-    st, fronts = forest_fronts(forest, ops, xs, oids, owner, st, wall)
-    applied = np.isin(st, (smtree.ST_APPLIED, smtree.ST_SPLIT, smtree.ST_MERGE))
-    escalations = int(((st == smtree.ST_OVERFLOW) | (st == smtree.ST_UNDERFLOW)).sum())
+    st, fronts, forest = stream_planes(base, ops, xs, oids, owner, device, wall)
+    applied = st == smtree.ST_APPLIED
+    check(bool(np.isin(st, (smtree.ST_APPLIED, smtree.ST_NOTFOUND)).all()),
+          "a row of the stream planes was left unresolved")
+    # rows the fronts left to the host plane (a blocked split chain)
+    escalations = fronts["stacked"]["escalated_rows"]
     # the stored rows of live ids, owner-routed
     gone = set(oids[applied & (ops == smtree.OP_DELETE)].tolist())
     placed = oids[applied & (ops == smtree.OP_INSERT)]
@@ -1276,75 +1312,46 @@ def run_forest(cfg: dict, device: str):
     return dict(launches=launches, knn=knn_launches, scan=scan_launches)
 
 
-def forest_fronts(forest, ops, xs, oids, owner, st, wall):
-    """The stream pipeline's orchestration of a cohort's escalations
-    (``repro/stream/pipeline.py``): the overflow rows through
-    ``forest_apply_splits`` in ``split_chunks`` widths, stopping at a chunk
-    that blocked, then, when no overflow is left, the underflow rows
-    through ``forest_apply_merges`` in ``merge_chunks`` widths.  Every
-    shard is then held bitwise against its own rows through the host plane
-    (``escalate_rows`` on a copy of the shard as the scan left it; rows a
-    blocked ring leaves go through the host plane on both sides).  Returns
-    (statuses after the fronts, a report)."""
+def stream_planes(trees, ops, xs, oids, owner, device, wall):
+    """The mutation log through both planes of ``StreamingForest`` from the
+    same shards: the stacked plane (the forest stacked on the card: the
+    scan front, then the overflow rows through ``forest_apply_splits`` in
+    ``split_chunks`` widths, stopping at a chunk that blocked, then the
+    underflow rows through ``forest_apply_merges`` in ``merge_chunks``
+    widths) and the host plane (per-shard batchers: the batched scan and
+    the device passes, shard by shard).  Statuses and every shard held
+    bitwise between the planes; the rows routed as ``owner``.  Returns
+    (statuses, a report, the stacked plane's forest)."""
     import numpy as np
-    import torch
 
-    from repro_torch.core import distributed as fd
     from repro_torch.core import smtree
-    from repro_torch.stream.batcher import escalate_rows
+    from repro_torch.stream import StreamingForest, tree_digest
 
-    dim = xs.shape[1]
-    before = [clone_tree(t) for t in fd.unstack_forest(forest)]
-    out = st.copy()
     report = {}
-    for kind, code, op, done, widths in (
-            ("split", smtree.ST_OVERFLOW, smtree.OP_INSERT, smtree.ST_SPLIT,
-             smtree.split_chunks),
-            ("merge", smtree.ST_UNDERFLOW, smtree.OP_DELETE, smtree.ST_MERGE,
-             smtree.merge_chunks)):
-        idx = np.nonzero((out == code) & (ops == op))[0]
-        if kind == "merge" and (out == smtree.ST_OVERFLOW).any():
-            idx = idx[:0]
-        seconds, c0, resolved = 0.0, 0, 0
-        for w in widths(len(idx)):
-            chunk = idx[c0:c0 + w]
-            c0 += w
-            k = len(chunk)
-            pad = lambda a, fill: np.concatenate([a[chunk], np.full(w - k, fill, a.dtype)])
-            ops_k, oids_k, owner_k = pad(ops, smtree.OP_NOP), pad(oids, -1), pad(owner, -1)
-            if kind == "split":
-                xs_k = np.vstack([xs[chunk], np.zeros((w - k, dim), np.float32)])
-                (_, s2), sec = wall(lambda: fd.forest_apply_splits(
-                    forest, ops_k, xs_k, oids_k, owner_k))
-            else:
-                (_, s2), sec = wall(lambda: fd.forest_apply_merges(
-                    forest, ops_k, oids_k, owner_k))
-            s2 = s2.cpu().numpy()[:k]
-            seconds += sec
-            resolved += int((s2 == done).sum())
-            out[chunk] = s2
-            if (s2 == smtree.ST_OVERFLOW).any():
-                break            # blocked: the rest goes to the host plane
-        report[kind] = dict(rows=len(idx), resolved=resolved, seconds=seconds,
-                            ms_per_row=seconds * 1e3 / len(idx) if len(idx) else None)
-    S = len(before)
-    for s, (t, t0) in enumerate(zip(fd.unstack_forest(forest), before)):
-        mine = owner == s
-        want = escalate_rows(t0, st[mine].copy(), ops[mine], xs[mine], oids[mine])
-        left = out[mine].copy()
-        got = escalate_rows(clone_tree(t), left, ops[mine], xs[mine], oids[mine])
-        for f in smtree.ARRAY_FIELDS:
-            check(torch.equal(getattr(got, f), getattr(want, f)),
-                  f"forest shard {s}: field {f} differs from the host plane")
-    report.update(shards_bitwise_vs_host_plane=S)
-    return out, report
+    planes = {}
+    for name, mesh in (("stacked", device), ("host", None)):
+        sf = StreamingForest(trees, mesh=mesh)
+        check(np.array_equal(sf.route(ops, oids), owner), f"{name}: routing differs")
+        res, sec = wall(lambda: sf.apply(ops, xs, oids))
+        planes[name] = (sf, res)
+        report[name] = dict(seconds=sec, ms_per_row=sec * 1e3 / len(ops),
+                            split_rows=res.n_split, merge_rows=res.n_merge,
+                            escalated_rows=res.n_escalated)
+    (sf, res), (hf, hres) = planes["stacked"], planes["host"]
+    check(np.array_equal(res.statuses, hres.statuses), "the planes' statuses differ")
+    check(tree_digest(sf.trees) == tree_digest(hf.trees), "the planes' shards differ")
+    report.update(planes_bitwise=True, n_shards=sf.n_shards)
+    st = res.statuses.copy()
+    return st, report, sf.stacked()
 
 
 def run_lm(cfg: dict, device: str):
     """The kNN-LM serving slice: its kernels against their plain versions
     (outside the launch counts), then its main path with the counts zeroed
     just before and read just after, then the replayed frontiers.  Returns
-    the slice's rows of the ``kernels`` line."""
+    (what the stream phases S1 and S3 need: the weights, a copy of the
+    datastore taken before its eviction, ...; the slice's rows of the
+    ``kernels`` line)."""
     import numpy as np
     import torch
     import torch.nn.functional as Fnn
@@ -1569,7 +1576,7 @@ def run_lm(cfg: dict, device: str):
                                float(np.median(again)) * 1e3)
 
     args = serve.parser().parse_args(cfg["serve_argv"] + ["--device", device])
-    store, store_s = wall(lambda: serve._build_store(mcfg, args.lam, device))
+    store, store_s = wall(lambda: serve._build_store(args, mcfg, device))
     c0 = counts()
     toks, timing = serve.serve_loop(args, mcfg, params, store)
     serve_counts = delta(c0)
@@ -1629,6 +1636,9 @@ def run_lm(cfg: dict, device: str):
     hq = hidden_states(params, mcfg, {"tokens": torch.from_numpy(held["tokens"]).to(dev)})
     pick = np.random.default_rng(3).choice(chunk * L, max(cfg["ret_bs"]), replace=False)
     Q = hq.reshape(-1, D)[torch.from_numpy(pick).to(dev)].contiguous()
+    # new keys for the stream phase's add batches (S1)
+    add_keys = hq.reshape(-1, D)[:2 * cfg["ds_evict"]].cpu().numpy()
+    add_vals = held["labels"].reshape(-1)[:2 * cfg["ds_evict"]].astype(np.int32)
     del hq
     store = KnnLmDatastore(KnnLmConfig(k=8, lam=0.3, metric="l2", capacity=32,
                                        max_frontier=128), D, device=device)
@@ -1669,20 +1679,26 @@ def run_lm(cfg: dict, device: str):
         return out
 
     before = retrieval("built", capture=True)
-    n_ev = cfg["ds_evict"]
-    # a copy for phase 11b, taken before the eviction (no launch)
-    batched = clone_tree(store.engine.tree)
+    n_ev, n_eb = cfg["ds_evict"], cfg["ds_evict_before"]
+    # copies for phase 11b and for the stream phase (S1), taken before the
+    # eviction (no launch)
+    batched = smtree.clone_tree(store.engine.tree)
+    s1_store = copy.copy(store)
+    s1_store.engine = SMTreeEngine(smtree.clone_tree(store.engine.tree))
     nodes_before = int(store.engine.tree.alive.sum())
-    evicted, evict_s = wall(lambda: store.evict_before(n_ev))
+    evicted, evict_s = wall(lambda: store.evict_before(n_eb))
     nodes_after = int(store.engine.tree.alive.sum())
-    check(evicted == n_ev, f"evicted {evicted} of {n_ev}")
+    check(evicted == n_eb, f"evicted {evicted} of {n_eb}")
     _, val_s = wall(store.engine.validate)
-    check(store.engine.n_objects == len(vals) - n_ev, "datastore count after eviction")
+    check(store.engine.n_objects == len(vals) - n_eb, "datastore count after eviction")
     after = retrieval("after eviction")
-    check(all(r["min_id"] >= n_ev or r["min_id"] == -1 for r in after.values()),
+    check(all(r["min_id"] >= n_eb or r["min_id"] == -1 for r in after.values()),
           "an evicted key came back")
     emit("knnlm_datastore", hidden_state_tap_seconds=tap_s, build_seconds=build_s,
          tree=tree_info, retrieval=before, evicted=evicted, evict_seconds=evict_s,
+         evict_before_cut=(f"{n_eb} ids, not the batched paths' {n_ev}: the one-Delete-"
+                           "at-a-time eviction is cut to keep the run under ~450 s"
+                           if n_eb < n_ev else None),
          alive_nodes_before_after_evict=[nodes_before, nodes_after],
          validate=True, validate_seconds=val_s, retrieval_after_evict=after)
     path = counts()
@@ -1710,8 +1726,13 @@ def run_lm(cfg: dict, device: str):
     def live_ids(t):
         return torch.sort(t.oid[t.valid & (t.alive & t.is_leaf)[:, None]]).values
 
-    check(torch.equal(live_ids(batched), live_ids(store.engine.tree)),
+    # what evict_before(n_ev) leaves: every id from n_ev on
+    want_live = torch.arange(n_ev, len(vals), dtype=torch.int32, device=dev)
+    check(torch.equal(live_ids(batched), want_live),
           "batched eviction: the live ids differ from evict_before's")
+    if n_eb == n_ev:
+        check(torch.equal(live_ids(store.engine.tree), want_live),
+              "evict_before: the live ids differ")
     bret = {}
     for rb in cfg["ret_bs"]:
         q = Q[:rb]
@@ -1726,6 +1747,7 @@ def run_lm(cfg: dict, device: str):
                               overflow_share=float(res.overflow.float().mean()),
                               min_id=int(res.ids.min()))
     emit("knnlm_batched_evict", deletes=n_ev, seconds=bev_s, evict_before_seconds=evict_s,
+         evict_before_ids=n_eb,
          not_bitwise_to_evict_before="a cohort orders its structure edits "
          "differently from one Delete at a time",
          statuses={"applied": int((st_ev == smtree.ST_APPLIED).sum()),
@@ -1738,7 +1760,10 @@ def run_lm(cfg: dict, device: str):
          alive_nodes=int(batched.alive.sum()), height=int(batched.height),
          validate=True, validate_seconds=bval_s, live_ids_equal_evict_before=True,
          retrieval=bret)
-    del store, params, keys, batched, beng
+    ctx = dict(params=params, mcfg=mcfg, store=s1_store, Q=Q, V=V, n_ev=n_ev,
+               evicted_live=want_live, add_keys=add_keys,
+               add_vals=add_vals, lm_ms_per_step=timing["ms_per_step"])
+    del store, keys, batched, beng
     free()
 
     # ---------------------------------------------------------------- 12
@@ -1757,7 +1782,7 @@ def run_lm(cfg: dict, device: str):
     step_p = serve_counts["frontier_pruned"] / args.steps
     fl = flash_rows["path_f32"]
     pr = prune_rows["d_inf"]
-    return [
+    return ctx, [
         dict(name="frontier_scores[wide]", route="cuda",
              source="src/repro_torch/kernels/csrc/frontier.cu",
              replaces="src/repro/kernels/frontier.py:109",
@@ -1792,6 +1817,409 @@ def run_lm(cfg: dict, device: str):
     ]
 
 
+STREAM_FULL = dict(
+    # S1: the phase-11 store (65,536 x 2048, l2, capacity 32, F=128)
+    ds_fs=(128, 512, 2048, 8192), ds_b=64,
+    # S2: FOREST_FULL's 1,000,000 objects over 8 shards, the serve
+    # launcher's skew settings (launch/serve.py:_build_store)
+    forest=dict(n=1_000_000, dims=20, capacity=32, n_shards=8, drain=32_768,
+                batch=4_096, both_planes=2, steps=32, snapshot_at=16, max_skew=1.3,
+                min_objects=256, b_bench=1024, b_exact=256,
+                exact_fs=(512, 1024, 2048, 4096, 8192, 16384)),
+    # S3: launch/serve at full width (phase 10's b=4, prompt 32, 16 steps)
+    serve_argvs={"knn_mutate": ["--knn", "--knn-mutate", "--obs"],
+                 "knn_shards4": ["--knn", "--knn-mutate", "--knn-shards", "4", "--obs"]})
+
+
+def stream_counts():
+    from repro_torch.kernels.distance import pairwise_distance
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.frontier import frontier_scores
+    return dict(frontier=frontier_scores.launches - frontier_scores.pruned_launches,
+                frontier_pruned=frontier_scores.pruned_launches,
+                frontier_wide=frontier_scores.wide_launches,
+                distance=pairwise_distance.launches, flash=flash_attention_fwd.launches)
+
+
+def zero_counts():
+    from repro_torch.kernels.distance import pairwise_distance
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.frontier import frontier_scores
+    frontier_scores.launches = frontier_scores.pruned_launches = 0
+    frontier_scores.wide_launches = 0
+    pairwise_distance.launches = flash_attention_fwd.launches = 0
+
+
+def span_seconds(names) -> dict:
+    """Seconds of each recorded obs span by name, in the order they ended."""
+    from repro_torch import obs
+    out = {n: [] for n in names}
+    for sp in obs.RECORDER.spans():
+        if sp["name"] in out:
+            out[sp["name"]].append(sp["duration_s"])
+    return out
+
+
+def tree_bytes(t) -> int:
+    from repro_torch.core.smtree import ARRAY_FIELDS
+    return sum(getattr(t, f).numel() * getattr(t, f).element_size() for f in ARRAY_FIELDS)
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def stream_datastore(ctx: dict, cfg: dict, device: str):
+    """S1: the phase-11 datastore (a copy taken before its eviction) through
+    ``enable_stream`` with a WAL: ``evict_batch`` of the ids that
+    ``evict_before`` evicted, then ``add_batch`` of as many new keys, each
+    against an epoch pinned before it; retrieval on the pinned epoch
+    through the kernels against the plain scorer, with the overflow share
+    by F; a snapshot through ``CheckpointManager``, two more batches, and
+    ``StreamingEngine.restore`` + the WAL tail and a ``Replica`` tailing
+    the same WAL, each reaching the live engine's (seq, digest)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import smtree
+    from repro_torch.core.engine import SMTreeEngine
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.kernels.frontier import frontier_scores_torch
+    from repro_torch.stream import (Replica, StreamingEngine, WriteAheadLog,
+                                    ledger_digest, tree_digest)
+
+    _, _, wall = timers(device == "cuda")
+    store, Q, V, n_ev = ctx["store"], ctx["Q"], ctx["V"], ctx["n_ev"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_s1_")
+    try:
+        obs.reset()
+        obs.enable()
+        wal_dir, ck_dir = f"{root}/wal", f"{root}/ck"
+        stream = store.enable_stream(wal_dir, ckpt=CheckpointManager(ck_dir, async_write=False))
+        ds_fs, b = cfg["ds_fs"], cfg["ds_b"]
+        with stream.epochs.reading() as pinned:
+            share = {}
+            for F in ds_fs:
+                share[F] = float(smtree.knn(pinned, Q[:b], k=8, max_frontier=F)
+                                 .overflow.float().mean())
+                if share[F] == 0.0:
+                    break
+        exact_F = next((F for F, v in share.items() if v == 0.0), None)
+
+        batches = {}
+
+        def batch(name, fn):
+            with stream.epochs.reading() as pinned:
+                d0 = tree_digest(pinned)
+                esc0 = obs.counter("stream.escalated_rows_total").value
+                n, sec = wall(fn)
+                resident = tree_bytes(pinned) + tree_bytes(stream.tree)
+                check(tree_digest(pinned) == d0, f"S1 {name}: the pinned epoch changed")
+            batches[name] = dict(rows=int(n), seconds=sec, resident_epoch_bytes=resident,
+                                 escalated_rows=obs.counter("stream.escalated_rows_total")
+                                 .value - esc0)
+
+        batch("evict", lambda: store.evict_batch(np.arange(n_ev)))
+        check(batches["evict"]["rows"] == n_ev, "S1: evict_batch removed too few")
+        got = stream.tree
+        check(torch.equal(torch.sort(got.oid[got.valid & (got.alive & got.is_leaf)[:, None]])
+                          .values, ctx["evicted_live"]),
+              "S1: the live ids differ from the evicted store's")
+        _, val_s = wall(lambda: check(SMTreeEngine(stream.tree).validate(),
+                                      "S1: validate after the eviction"))
+        add_k, add_v = ctx["add_keys"], ctx["add_vals"]
+        batch("add", lambda: len(store.add_batch(add_k[:n_ev], add_v[:n_ev])))
+        spans = span_seconds(("mutation.wal_append", "mutation.apply", "mutation.publish"))
+        for i, name in enumerate(("evict", "add")):
+            batches[name].update({k.split(".")[1] + "_seconds": v[i] for k, v in spans.items()})
+        _, copy_s = wall(lambda: smtree.clone_tree(stream.tree))
+
+        retrieval = {}
+        for rb in sorted({4, b}):
+            q = Q[:rb]
+            with stream.epochs.reading() as pinned:
+                res = smtree.knn(pinned, q, k=8, max_frontier=128)
+                ref = smtree.knn(pinned, q, k=8, max_frontier=128,
+                                 _scorer=frontier_scores_torch)
+            for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
+                check(torch.equal(getattr(res, f), getattr(ref, f)),
+                      f"S1 b={rb}: kernel and plain descents differ in {f}")
+            lp = store.knn_logits(q, V)
+            check(lp.shape == (rb, V) and bool(torch.isfinite(lp).all()), "S1: kNN log-probs")
+            retrieval[f"b{rb}"] = dict(
+                knn_logits_ms=[wall(lambda: store.knn_logits(q, V))[1] * 1e3 for _ in range(3)],
+                overflow_share=float(res.overflow.float().mean()), bitwise_vs_plain=True)
+
+        _, snap_s = wall(stream.snapshot)
+        snap_bytes = dir_bytes(ck_dir)
+        store.evict_batch(np.arange(n_ev, 2 * n_ev))
+        store.add_batch(add_k[n_ev:], add_v[n_ev:])
+        seq, digest = ledger_digest(stream)
+        restored, restore_s = wall(lambda: StreamingEngine.restore(
+            ck_dir, wal=WriteAheadLog(wal_dir), device=device))
+        check(tree_digest(restored.tree) == digest, "S1: snapshot + WAL tail != the live engine")
+        del restored
+        rep, rep_s = wall(lambda: Replica.from_snapshot(ck_dir, wal_dir, device=device))
+        _, poll_s = wall(lambda: rep.verify(seq, digest, timeout=600))
+        del rep
+        m = obs.REGISTRY.snapshot()
+        emit("stream_datastore", keys=len(store.values), dim=store.dim, batch_rows=n_ev,
+             batches=batches, copy_seconds=copy_s, validate_seconds=val_s,
+             escalated_rows=m["stream.escalated_rows_total"],
+             device_merges=m["stream.device_merges_total"],
+             device_splits=m["stream.device_splits_total"],
+             wal_bytes=m["wal.bytes_total"], wal_appends=m["wal.appends_total"],
+             retrieval=retrieval, overflow_share_b64_by_F=share,
+             smallest_exact_F_b64=exact_F, snapshot=dict(
+                 bytes=snap_bytes, write_seconds=snap_s, restore_seconds=restore_s,
+                 tail_batches=2, restore_equals_live=True),
+             replica=dict(from_snapshot_seconds=rep_s, tail_seconds=poll_s, seq=seq,
+                          digest_equal=True),
+             pinned_epochs_unchanged=True, live_ids_equal_evict_before=True)
+    finally:
+        obs.disable()
+        obs.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def lm_serve_stream(ctx: dict, cfg: dict, device: str):
+    """S3: ``launch/serve`` with ``--knn --knn-mutate --obs`` (and with a
+    4-shard forest) on the phase-10 weights: ms per decode step beside
+    phase 10's, and the ``[obs]`` snapshot's stream/wal/epoch rows."""
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    from repro_torch.obs.export import metrics_snapshot
+
+    params, mcfg, V = ctx["params"], ctx["mcfg"], ctx["V"]
+    runs = {}
+    for name, argv in cfg["serve_argvs"].items():
+        args = serve.parser().parse_args(argv + ["--device", device])
+        obs.reset()
+        obs.enable()
+        try:
+            store = serve._build_store(args, mcfg, device)
+            c0 = stream_counts()
+            toks, timing = serve.serve_loop(args, mcfg, params, store)
+            c1 = stream_counts()
+            snap = metrics_snapshot()
+        finally:
+            obs.disable()
+            obs.reset()
+        check(toks.shape == (args.batch, args.steps + 1)
+              and bool(((toks >= 0) & (toks < V)).all()), f"S3 {name}: bad tokens")
+        check(timing["mutations"] == 2 * args.batch * args.steps, f"S3 {name}: mutations")
+        n_live = sum(t.n_objects for t in (store.stream.trees if args.knn_shards > 1
+                                           else [store.stream.tree]))
+        check(n_live == 2048, f"S3 {name}: {n_live} live keys, not 2048")
+        rows = {k: v for k, v in snap["metrics"].items()
+                if k.split(".")[0] in ("stream", "wal", "epoch")}
+        runs[name] = dict(argv=argv, ms_per_decode_step=timing["ms_per_step"],
+                          lm_serve_ms_per_decode_step=ctx["lm_ms_per_step"],
+                          mutations=timing["mutations"], obs_rows=rows,
+                          launches={k: c1[k] - c0[k] for k in c0})
+        del store
+    emit("lm_serve_stream", arch=mcfg.name, runs=runs,
+         wal_rows="none: --knn-mutate runs without a WAL, as the reference's does")
+
+
+def stream_forest(cfg: dict, device: str):
+    """S2: FOREST_FULL's objects over 8 shards as a ``StreamingForest``
+    (incremental rebalancing, WAL and checkpoints): a delete stream that
+    drains shard 0, ``maintenance()`` after each batch, the first batches
+    through both planes (stacked and host) held bitwise; then the
+    migration's steps, a snapshot between them and the crash drill
+    (restore + WAL tail = the live forest); forest kNN on a pinned epoch
+    through the kernels against the plain scorer and, at the smallest exact
+    F, against ``brute_force_knn`` of the live set; one stop-the-world
+    rebuild on the side, timed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import distributed as fd
+    from repro_torch.core import smtree
+    from repro_torch.data.datagen import clustered
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.kernels.frontier import frontier_scores_torch
+    from repro_torch.serve.frontend import pinned_knn
+    from repro_torch.stream import (StreamingForest, WriteAheadLog, collect_stats,
+                                    rebalance_shards, tree_digest)
+
+    _, _, wall = timers(device == "cuda")
+    c = cfg["forest"]
+    n, S, dim = c["n"], c["n_shards"], c["dims"]
+    X = clustered(n, dims=dim, seed=0)
+    trees, build_s = wall(lambda: fd.build_forest_trees(X, S, capacity=c["capacity"],
+                                                        metric="d_inf", device=device))
+    root = tempfile.mkdtemp(prefix="chip_smoke_s2_")
+    try:
+        obs.reset()
+        obs.enable()
+        kw = dict(rebalance_mode="incremental", max_skew=c["max_skew"],
+                  min_objects=c["min_objects"])
+        sf = StreamingForest(trees, wal=WriteAheadLog(f"{root}/wal"),
+                             ckpt=CheckpointManager(f"{root}/ck", async_write=False), **kw)
+        other = StreamingForest(trees, mesh=device, **kw)
+        rng = np.random.default_rng(21)
+        drain = rng.choice(np.arange(0, n, S), c["drain"], replace=False).astype(np.int32)
+        rows = []
+        for i in range(c["drain"] // c["batch"]):
+            ids = drain[i * c["batch"]:(i + 1) * c["batch"]]
+            esc0 = obs.counter("stream.escalated_rows_total").value
+            res, sec = wall(lambda: sf.delete_batch(X[ids], ids))
+            check(bool((res.statuses == smtree.ST_APPLIED).all()), "S2: a delete did not apply")
+            row = dict(seconds=sec, ms_per_row=sec * 1e3 / len(ids), merges=res.n_merge,
+                       escalated=obs.counter("stream.escalated_rows_total").value - esc0)
+            if i < c["both_planes"]:
+                _, osec = wall(lambda: other.delete_batch(X[ids], ids))
+                check(tree_digest(sf.trees) == tree_digest(other.trees),
+                      f"S2 batch {i}: the stacked and host planes differ")
+                row.update(stacked_plane_seconds=osec, planes_bitwise=True)
+            _, msec = wall(sf.maintenance)
+            row["maintenance_seconds"] = msec
+            rows.append(row)
+        del other
+        check(sf.migration_active, "S2: the drained shard did not start a migration")
+        plan = next(e["attrs"] for e in obs.RECORDER.events()
+                    if e["name"] == "stream.migration_plan")
+        skew_before = collect_stats(sf.trees).skew
+        while sf.migration_active and sf.n_migration_steps < c["steps"]:
+            sf.maintenance()
+            if sf.n_migration_steps == c["snapshot_at"]:
+                _, snap_s = wall(sf.snapshot)
+                snap_bytes = dir_bytes(f"{root}/ck")
+        steps = sf.n_migration_steps
+        check(steps == c["steps"], f"S2: the plan ended after {steps} steps")
+        skew_after = collect_stats(sf.trees).skew
+        live_digest = tree_digest(sf.trees)
+        restored, restore_s = wall(lambda: StreamingForest.restore(
+            f"{root}/ck", wal=WriteAheadLog(f"{root}/wal"), device=device))
+        check(tree_digest(restored.trees) == live_digest,
+              "S2: restore between migration steps + WAL tail != the live forest")
+        check(restored.owner == sf.owner, "S2: the restored ownership map differs")
+        del restored
+        pause = obs.histogram("rebalance.step_pause_s")
+        m = obs.REGISTRY.snapshot()
+
+        # forest kNN on a pinned epoch
+        qrng = np.random.default_rng(22)
+        gone = np.zeros(n, bool)
+        gone[drain] = True
+        live = np.nonzero(~gone)[0]
+
+        def queries(m_):
+            rows_ = live[qrng.integers(0, len(live), m_)]
+            return torch.from_numpy((X[rows_] + qrng.normal(0, 0.01, (m_, dim)))
+                                    .astype(np.float32)).to(device)
+
+        Qa, Qb = queries(c["b_bench"]), queries(c["b_exact"])
+        with sf.epochs.reading() as pinned:
+            (da, ia), bench_s = wall(lambda: pinned_knn(pinned, Qa, k=K, max_frontier=BENCH_F))
+            dp, ip = pinned_knn(pinned, Qa, k=K, max_frontier=BENCH_F,
+                                _scorer=frontier_scores_torch)
+            check(torch.equal(da, dp) and torch.equal(ia, ip),
+                  "S2 forest kNN: kernel and plain paths differ")
+            tried = {}
+            for Fx in c["exact_fs"]:
+                ovf = torch.stack([smtree.knn(t, Qb, k=K, max_frontier=Fx).overflow
+                                   for t in pinned]).any(0)
+                tried[Fx] = float(ovf.float().mean())
+                if tried[Fx] == 0.0:
+                    break
+            (db, ib), exact_s = wall(lambda: pinned_knn(pinned, Qb, k=K, max_frontier=Fx))
+        check(tried[Fx] == 0.0, "S2: every exact F overflowed")
+        Xlive = torch.from_numpy(X[live]).to(device)
+        sd, si = fd.brute_force_knn(Xlive, Qb, k=K + 1, device=device)
+        live_t = torch.from_numpy(live).to(device)
+        check(torch.equal(db, sd[:, :K]), "S2 exact forest kNN: dists differ from the scan")
+        distinct = sd[:, K - 1] != sd[:, K]
+        check(torch.equal(torch.sort(ib[distinct].long(), 1).values,
+                          torch.sort(live_t[si[distinct, :K]], 1).values),
+              "S2 exact forest kNN: ids differ from the scan")
+
+        trees_now = sf.trees
+        (rebuilt, moved, _), rebuild_s = wall(lambda: rebalance_shards(trees_now, seed=0))
+        check(collect_stats(rebuilt).total == collect_stats(trees_now).total,
+              "S2: the stop-the-world rebuild lost objects")
+        emit("stream_forest", n=n, n_shards=S, build_seconds=build_s, batches=rows,
+             rebalance_mode="incremental", max_skew=c["max_skew"],
+             plan=dict(steps=plan["steps"], objects=plan["objects"], step_objects=64),
+             migration=dict(steps_run=steps, objects_moved=sf.objects_migrated,
+                            step_pause_ms_mean=pause.mean * 1e3,
+                            step_pause_ms_p50=pause.percentile(50) * 1e3,
+                            step_pause_ms_max=m["rebalance.step_pause_s.max"] * 1e3,
+                            skew_at_plan=skew_before, skew_after=skew_after),
+             crash_drill=dict(snapshot_after_step=c["snapshot_at"], snapshot_bytes=snap_bytes,
+                              snapshot_seconds=snap_s, restore_seconds=restore_s,
+                              restore_equals_live=True),
+             escalated_rows=m["stream.escalated_rows_total"],
+             wal_bytes=m["wal.bytes_total"],
+             knn=dict(bench=dict(b=c["b_bench"], max_frontier=BENCH_F, ms=bench_s * 1e3,
+                                 bitwise_vs_plain=True),
+                      exact=dict(b=c["b_exact"], overflow_share_by_F=tried, max_frontier=Fx,
+                                 ms=exact_s * 1e3, rows_checked=c["b_exact"],
+                                 rows_ids_checked=int(distinct.sum()))),
+             stop_world=dict(seconds=rebuild_s, moved=moved,
+                             skew_after=collect_stats(rebuilt).skew))
+    finally:
+        obs.disable()
+        obs.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_stream(ctx: dict, cfg: dict, device: str) -> dict:
+    """The stream path (S1, S3, then S2), launch counts zeroed just before
+    and read just after, apart from the other paths'.  S1 and S3 score wide
+    rows only and S2 narrow rows only, so the frontier counts split by
+    width at the boundary.  Returns the counts by kernel row."""
+    import torch
+    zero_counts()
+    stream_datastore(ctx, cfg, device)
+    lm_serve_stream(ctx, cfg, device)
+    wide = stream_counts()
+    ctx.clear()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    stream_forest(cfg, device)
+    total = stream_counts()
+    counts = dict(frontier=total["frontier"] - wide["frontier"],
+                  frontier_pruned=total["frontier_pruned"] - wide["frontier_pruned"],
+                  frontier_wide=wide["frontier"], frontier_wide_pruned=wide["frontier_pruned"],
+                  distance=total["distance"], flash=total["flash"])
+    emit("stream_path_launches", **counts)
+    if device == "cuda":
+        check(wide["frontier_wide"] == wide["frontier"] + wide["frontier_pruned"]
+              and total["frontier_wide"] == wide["frontier_wide"],
+              "the stream path's frontier launches do not split by width")
+        for name in ("frontier", "frontier_pruned", "frontier_wide",
+                     "frontier_wide_pruned", "distance"):
+            check(counts[name] > 0, f"kernel {name} never launched on the stream path")
+    return counts
+
+
+def with_stream(rows: list, stream: dict) -> list:
+    """Every row of the ``kernels`` line with the stream path's count under
+    ``launches_by_path['stream']`` (the LM rows gain ``launches_by_path``,
+    their slice's count under ``lm``); ``launches`` stays its path's."""
+    key = {"frontier_scores": "frontier", "frontier_scores[parent_prune]": "frontier_pruned",
+           "frontier_scores[wide]": "frontier_wide",
+           "frontier_scores[wide,parent_prune]": "frontier_wide_pruned",
+           "pairwise_distance": "distance", "flash_attention_fwd": "flash"}
+    out = []
+    for row in rows:
+        by_path = dict(row.get("launches_by_path", {"lm": row["launches"]}))
+        by_path["stream"] = stream[key[row["name"]]] if row["name"] in key else 0
+        out.append(dict(row, launches_by_path=by_path))
+    return out
+
+
 def with_forest(index_rows: list, forest: dict) -> list:
     """The index slice's rows with the forest pass added: ``launches``
     stays the index path's count, ``launches_by_path`` gives both passes,
@@ -1821,9 +2249,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     forest = run_forest(FOREST_FULL, "cuda")
     torch.cuda.empty_cache()
-    wide, wide_pruned, prune, flash = run_lm(LM_FULL, "cuda")
+    ctx, (wide, wide_pruned, prune, flash) = run_lm(LM_FULL, "cuda")
+    torch.cuda.empty_cache()
+    stream = run_stream(ctx, STREAM_FULL, "cuda")
     narrow, narrow_pruned, scan = with_forest(index_rows, forest)
-    kernels = [narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash]
+    kernels = with_stream([narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash],
+                          stream)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

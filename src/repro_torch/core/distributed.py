@@ -19,8 +19,9 @@ loops over the shards, working on views of the stacked tensors:
 With a ``torch.distributed`` process group every front runs one shard per
 rank instead: ``forest_knn`` and ``brute_force_knn`` all-gather the
 per-shard candidates before the same merge, and the mutation fronts
-all-reduce their masked rows by sum (the ``psum``).  ``place_forest`` and
-``promote_follower`` wait for ROADMAP Queue 1 item 10.
+all-reduce their masked rows by sum (the ``psum``).  ``place_forest`` puts
+a host-side forest (a follower's shards) where the fronts serve it;
+``promote_follower`` waits for the lease (ROADMAP Queue 1 item 11).
 
 Every selection is a stable ascending sort, so equal values come back
 lowest index first, as ``jax.lax.top_k`` gives them.
@@ -109,6 +110,34 @@ def build_forest(X: np.ndarray, n_shards: int, *, capacity: int = 32,
     return stack_trees(build_forest_trees(X, n_shards, capacity=capacity,
                                           metric=metric, seed=seed,
                                           device=device))
+
+
+def place_forest(trees_or_forest, *, group=None, device=None) -> TreeArrays:
+    """Make a forest resident where ``forest_knn`` and the fronts serve it:
+    the read-replica fan-out step (stream/replica.py: a follower replays
+    the WAL into per-shard trees, then each published epoch's shards are
+    placed here and queried through the same fronts as the leader's).
+
+    ``trees_or_forest`` is a list of per-shard trees or a stacked forest.
+    Without ``group`` the shards are stacked (padded as ``stack_trees``
+    pads) on ``device`` (None = the card).  With a ``torch.distributed``
+    group there is one shard per rank: the result is this rank's shard,
+    on ``device``, and the shard count must equal the group's size."""
+    device = resolve_device(device)
+    trees = (unstack_forest(trees_or_forest)
+             if isinstance(trees_or_forest, TreeArrays) else list(trees_or_forest))
+    if group is None:
+        return stack_trees([_to_device(t, device) for t in trees])
+    import torch.distributed as dist
+    if dist.get_world_size(group) != len(trees):
+        raise ValueError(f"the group has {dist.get_world_size(group)} ranks for "
+                         f"{len(trees)} shards (need exactly one per shard)")
+    return _to_device(trees[dist.get_rank(group)], device)
+
+
+def _to_device(tree: TreeArrays, device) -> TreeArrays:
+    return dataclasses.replace(
+        tree, **{f: getattr(tree, f).to(device) for f in ARRAY_FIELDS})
 
 
 def common_static_height(forest: TreeArrays) -> int | None:

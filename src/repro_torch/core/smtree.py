@@ -130,6 +130,14 @@ class TreeArrays:
         return int((~self.alive).sum())
 
 
+def clone_tree(tree: TreeArrays) -> TreeArrays:
+    """A copy of ``tree`` (a tree or a stacked forest) whose tensors share
+    nothing with it, on the same device: what a writer takes before it
+    writes a version that a reader may hold (stream/batcher.py)."""
+    return dataclasses.replace(
+        tree, **{f: getattr(tree, f).clone() for f in ARRAY_FIELDS})
+
+
 def packed_free_list(alive) -> tuple[np.ndarray, np.ndarray]:
     """Free-ring representation of the dead node set: dead ids in
     descending order, so the top of the stack is the lowest free id (what

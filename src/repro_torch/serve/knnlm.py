@@ -13,10 +13,12 @@ Delete to drop stale entries online.  Retrieval is the port's cohort
 descent (``SMTreeEngine.knn``), whose frontier scorer is the CUDA kernel
 on the card; keys are hidden states, so rows are ``d_model`` wide.
 
-Not ported yet (ROADMAP Queue 1 item 13, each raise naming its part):
-the streaming write pipeline (``enable_stream``, 13.1), the serving
-front-end and replication (``enable_frontend``, ``enable_replication``,
-13.2) and the mesh (13.4).
+``enable_stream`` routes ``add_batch``/``evict_batch`` through the stream
+plane (repro_torch.stream): one batched apply per batch, optionally
+WAL-logged, with retrieval on a pinned epoch; with ``shards > 1`` the store
+becomes a streaming forest.  Not ported yet (ROADMAP Queue 1 item 13, each
+raise naming its part): the serving front-end and replication
+(``enable_frontend``, ``enable_replication``, 13.2) and the mesh (13.4).
 """
 from __future__ import annotations
 
@@ -25,10 +27,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import SMTreeEngine
-from repro_torch.core.smtree import resolve_device
+from repro_torch.core.smtree import ST_APPLIED, resolve_device
 from repro_torch.models import model as M
+from repro_torch.serve.frontend import pinned_knn
 
 
 def _not_ported(what: str, part: int) -> NotImplementedError:
@@ -63,6 +67,7 @@ class KnnLmDatastore:
         self._vals_buf = self.values
         self._values_dev = None      # device copy of ``values``, made lazily
         self.engine: SMTreeEngine | None = None
+        self.stream = None   # StreamingEngine / StreamingForest when enabled
 
     def build(self, keys: np.ndarray, values: np.ndarray):
         self.keys = np.asarray(keys, np.float32)
@@ -75,7 +80,15 @@ class KnnLmDatastore:
             capacity=self.cfg.capacity, metric=self.cfg.metric,
             device=self.device)
 
+    def _no_stream(self, what: str) -> None:
+        # the stream publishes engine.tree as an epoch a reader may pin; the
+        # engine's Insert/Delete write it in place
+        if self.stream is not None:
+            raise ValueError(f"{what} writes the tree in place; with the stream "
+                             "enabled, use add_batch/evict_batch")
+
     def add(self, key: np.ndarray, value: int):
+        self._no_stream("add")
         oid = len(self.values)
         self._append_history(np.asarray(key, np.float32)[None],
                              np.asarray([value], np.int32))
@@ -83,14 +96,49 @@ class KnnLmDatastore:
 
     def evict(self, oid: int) -> bool:
         """Online deletion — the paper's contribution at work."""
+        self._no_stream("evict")
         return self.engine.delete(self.keys[oid], oid)
 
     def evict_before(self, oid_bound: int) -> int:
         """Sliding-window eviction: drop all entries with id < bound."""
         return sum(self.evict(oid) for oid in range(oid_bound))
 
-    def enable_stream(self, *args, **kw):
-        raise _not_ported("the streaming write pipeline", 1)
+    def enable_stream(self, wal_dir: str | None = None, *, shards: int = 0,
+                      **kw):
+        """Route ``add_batch``/``evict_batch`` through the stream write
+        pipeline: conflict-free cohort batching (one batched apply per
+        batch instead of one Insert/Delete per entry) with optional WAL
+        durability.  Call after ``build``.
+
+        With ``shards`` > 1 the store is re-partitioned round-robin into a
+        ``StreamingForest`` (on the store's device) instead of a
+        single-tree engine: queries merge per-shard descents, and
+        ``maintenance()`` repairs delete skew — incrementally when
+        ``rebalance_mode='incremental'`` is passed through ``kw``."""
+        from repro_torch.stream import (StreamingEngine, StreamingForest,
+                                        WriteAheadLog)
+        wal = WriteAheadLog(wal_dir) if wal_dir else None
+        if shards and shards > 1:
+            from repro_torch.core.distributed import build_forest_trees
+            trees = build_forest_trees(self.keys, int(shards),
+                                       capacity=self.cfg.capacity,
+                                       metric=self.cfg.metric,
+                                       device=self.device)
+            self.stream = StreamingForest(trees, wal=wal, **kw)
+        else:
+            self.stream = StreamingEngine(self.engine.tree, wal=wal, **kw)
+        return self.stream
+
+    def _sync_engine_tree(self) -> None:
+        """Point ``engine.tree`` at the *published* epoch (never at the
+        batcher's working tree), so non-stream readers of ``engine.tree``
+        only see published versions.  A forest's epochs are shard tuples:
+        there is no single engine tree, and every read goes through the
+        pinned-epoch merge."""
+        if self.stream is not None:
+            _, tree = self.stream.epochs.current()
+            if not isinstance(tree, tuple):
+                self.engine.tree = tree
 
     def enable_frontend(self, **kw):
         raise _not_ported("the serving front-end", 2)
@@ -122,19 +170,41 @@ class KnnLmDatastore:
         values = np.asarray(values, np.int32)
         oids = (len(self.values) + np.arange(len(values))).astype(np.int32)
         self._append_history(keys, values)
-        for k, o in zip(keys, oids):
-            self.engine.insert(k, int(o))
+        if self.stream is not None:
+            self.stream.insert_batch(keys, oids)
+            self._sync_engine_tree()
+        else:
+            for k, o in zip(keys, oids):
+                self.engine.insert(k, int(o))
         return oids
 
     def evict_batch(self, oids: np.ndarray) -> int:
         """Batched online eviction; returns the number of entries removed."""
-        return sum(self.evict(int(o)) for o in np.asarray(oids, np.int32))
+        oids = np.asarray(oids, np.int32)
+        if self.stream is None:
+            return sum(self.evict(int(o)) for o in oids)
+        res = self.stream.delete_batch(self.keys[oids], oids)
+        self._sync_engine_tree()
+        return int((res.statuses == ST_APPLIED).sum())
 
     def knn_logits(self, h, vocab: int) -> torch.Tensor:
         """h: [b, D] query hidden states -> kNN log-probs [b, vocab] f32 on
-        the tree's device."""
-        res = self.retrieve(h)
-        d, ids = res.dists, res.ids
+        the tree's device.
+
+        With the stream enabled the descent runs against a *pinned* epoch
+        (``EpochManager.reading``; one tree, or a forest's shards merged by
+        ``pinned_knn``), so a writer can publish and retire versions
+        without ever touching the tree this query descends."""
+        if self.stream is None:
+            res = self.retrieve(h)
+            if obs.want_level_stats():      # sampled, as the stream paths
+                obs.observe_query_result(res)
+            d, ids = res.dists, res.ids
+        else:
+            h = torch.as_tensor(h, dtype=torch.float32, device=self.device)
+            with self.stream.epochs.reading() as pinned:
+                d, ids = pinned_knn(pinned, h, k=self.cfg.k,
+                                    max_frontier=self.cfg.max_frontier)
         if self._values_dev is None:
             self._values_dev = torch.from_numpy(self.values).to(self.device)
         vals = torch.where(ids >= 0, self._values_dev[ids.clamp_min(0).long()], 0)

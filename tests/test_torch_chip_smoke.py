@@ -28,7 +28,7 @@ TINY = dict(n=3000, dims=6, capacity=8, b_bench=16, b_exact=8, b_parity=8,
 LM_TINY = dict(
     arch="qwen2.5-3b", smoke=True, prefill_b=2, prefill_s=16,
     serve_argv=["--knn", "--batch", "2", "--prompt-len", "4", "--steps", "3"],
-    ds_seqs=4, ds_len=32, ds_chunk=2, ds_evict=16, ret_bs=[2, 4],
+    ds_seqs=4, ds_len=32, ds_chunk=2, ds_evict=16, ds_evict_before=8, ret_bs=[2, 4],
     wide_b=2, wide_F=4, wide_cap=8, wide_N=16, wide_dims=[160, 129, 131],
     flash_cases={"path_f32": [1, 4, 4, 40, 40, 16, True, "float32"],
                  "path_bf16": [1, 4, 4, 40, 40, 16, True, "bfloat16"],
@@ -38,6 +38,15 @@ LM_TINY = dict(
 FOREST_TINY = dict(n=4000, dims=6, capacity=8, n_shards=4, b_bench=16, b_exact=8,
                    exact_fs=[64, 256, 1024, 4096], n_insert=60, n_delete=60,
                    n_extract=16, b_recheck=8, timing_reps=2)
+LM_ARGV = ["--batch", "2", "--prompt-len", "4", "--steps", "3"]
+STREAM_TINY = dict(
+    ds_fs=[8, 32, 128, 512], ds_b=4,
+    forest=dict(n=8000, dims=6, capacity=8, n_shards=4, drain=600, batch=300,
+                both_planes=2, steps=6, snapshot_at=3, max_skew=1.3, min_objects=256,
+                b_bench=16, b_exact=8, exact_fs=[64, 256, 1024, 4096]),
+    serve_argvs={"knn_mutate": ["--knn", "--knn-mutate", "--obs"] + LM_ARGV,
+                 "knn_shards4": ["--knn", "--knn-mutate", "--knn-shards", "4", "--obs"]
+                 + LM_ARGV})
 KEYS = {"name", "route", "source", "replaces", "launches", "launches_per_pass",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
@@ -48,7 +57,7 @@ def _rehearse(call: str, keep: tuple = ()):
         sys.modules["jax"] = None
         sys.path.insert(0, {str(ROOT)!r})
         import chip_smoke
-        out = chip_smoke.{call}
+        out = eval({call!r}, vars(chip_smoke))
         print("RESULT", json.dumps(out))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -120,14 +129,17 @@ def test_forest_pass_rehearses_on_the_cpu():
     assert "rows_checked" not in perq["results"]["bench"]     # timed, not compared
     assert mut["replay_bitwise"] and mut["extract"]["bitwise"]
     assert sum(mut["statuses"].values()) == FOREST_TINY["n_insert"] + FOREST_TINY["n_delete"]
-    # the split and merge fronts take every escalated row of the scan
+    # the log through both planes of StreamingForest: the stacked plane's
+    # split and merge fronts (or the host plane's passes) take every row
+    # the scan left, and the planes agree bit for bit
     fronts = mut["fronts"]
-    assert fronts["split"]["rows"] == mut["statuses"]["overflow"]
-    assert fronts["merge"]["rows"] == mut["statuses"]["underflow"]
-    assert fronts["shards_bitwise_vs_host_plane"] == FOREST_TINY["n_shards"]
-    assert mut["escalation_rows_left"] == 0
-    assert fronts["split"]["resolved"] + fronts["merge"]["resolved"] == (
-        mut["statuses"]["overflow"] + mut["statuses"]["underflow"])
+    assert fronts["planes_bitwise"] and fronts["n_shards"] == FOREST_TINY["n_shards"]
+    left = mut["statuses"]["overflow"] + mut["statuses"]["underflow"]
+    assert left > 0 and mut["escalation_rows_left"] == 0
+    for plane in ("stacked", "host"):
+        p = fronts[plane]
+        assert p["split_rows"] + p["merge_rows"] + p["escalated_rows"] == left
+        assert p["ms_per_row"] > 0
     assert set(counts) == {"launches", "knn", "scan"}      # launches count on the card only
 
 
@@ -149,12 +161,22 @@ def test_forest_counts_join_the_index_rows():
     assert rows[0]["launches"] == 17                          # inputs untouched
 
 
-def test_lm_slice_rehearses_on_the_cpu():
+@pytest.fixture(scope="module")
+def lm_and_stream():
+    """The kNN-LM slice, then the stream path (S1-S3) on its state, in one
+    rehearsal."""
     cfg = json.loads(json.dumps(LM_TINY))
-    phases, rows, ev = _rehearse(f"run_lm({cfg!r}, 'cpu')", keep=("knnlm_batched_evict",))
-    assert phases == ["kernel_frontier_wide", "kernel_flash", "kernel_distance_prune",
-                      "lm_serve", "knnlm_datastore", "lm_path_launches",
-                      "knnlm_batched_evict", "frontier_replay"]
+    return _rehearse(f"(lambda ctx, rows: [rows, run_stream(ctx, {STREAM_TINY!r}, 'cpu')])"
+                     f"(*run_lm({cfg!r}, 'cpu'))",
+                     keep=("knnlm_batched_evict", "stream_datastore", "stream_forest",
+                           "lm_serve_stream", "stream_path_launches"))
+
+
+def test_lm_slice_rehearses_on_the_cpu(lm_and_stream):
+    phases, (rows, _), ev, *_ = lm_and_stream
+    assert phases[:8] == ["kernel_frontier_wide", "kernel_flash", "kernel_distance_prune",
+                          "lm_serve", "knnlm_datastore", "lm_path_launches",
+                          "knnlm_batched_evict", "frontier_replay"]
     assert ev["deletes"] == LM_TINY["ds_evict"] == sum(ev["statuses"].values())
     assert ev["validate"] and ev["live_ids_equal_evict_before"]
     assert set(ev["retrieval"]) == {f"b{b}" for b in LM_TINY["ret_bs"]}
@@ -167,6 +189,58 @@ def test_lm_slice_rehearses_on_the_cpu():
         extra |= {"device_ms"} if r["name"] == "pairwise_distance_prune" else set()
         assert set(r) == KEYS | extra and r["route"] == "cuda"
         assert (ROOT / r["source"]).exists()
+
+
+def test_stream_path_rehearses_on_the_cpu(lm_and_stream):
+    phases, (_, counts), _, s1, s2, s3, launches = lm_and_stream
+    assert phases[8:] == ["stream_datastore", "lm_serve_stream", "stream_forest",
+                          "stream_path_launches"]
+    # S1: the batches through the stream, each beside a pinned epoch
+    n_ev = LM_TINY["ds_evict"]
+    assert s1["batches"]["evict"]["rows"] == s1["batches"]["add"]["rows"] == n_ev
+    assert s1["pinned_epochs_unchanged"] and s1["live_ids_equal_evict_before"]
+    for b in s1["batches"].values():
+        assert b["wal_append_seconds"] > 0 and b["apply_seconds"] > 0
+        assert b["publish_seconds"] > 0 and b["resident_epoch_bytes"] > 0
+    assert s1["wal_appends"] == 4 and s1["wal_bytes"] > 0
+    assert s1["snapshot"]["restore_equals_live"] and s1["replica"]["digest_equal"]
+    assert s1["snapshot"]["bytes"] > 0
+    assert set(s1["retrieval"]) == {"b4"} and s1["retrieval"]["b4"]["bitwise_vs_plain"]
+    assert s1["smallest_exact_F_b64"] in STREAM_TINY["ds_fs"] + [None]
+    # S2: the drain, both planes, the migration, the crash drill, kNN
+    f = STREAM_TINY["forest"]
+    assert len(s2["batches"]) == f["drain"] // f["batch"]
+    assert all(b["planes_bitwise"] for b in s2["batches"][:f["both_planes"]])
+    assert s2["migration"]["steps_run"] == f["steps"] and s2["migration"]["objects_moved"] > 0
+    assert s2["migration"]["skew_at_plan"] > f["max_skew"] > s2["migration"]["skew_after"] or \
+        s2["migration"]["skew_after"] < s2["migration"]["skew_at_plan"]
+    assert s2["crash_drill"]["restore_equals_live"]
+    assert s2["knn"]["bench"]["bitwise_vs_plain"] and s2["knn"]["exact"]["rows_checked"] == 8
+    assert s2["stop_world"]["moved"] > 0 and s2["stop_world"]["skew_after"] < 1.05
+    # S3: the launcher with the streaming store, one tree and 4 shards
+    for name, run in s3["runs"].items():
+        assert run["mutations"] == 2 * 2 * 3 and run["ms_per_decode_step"] > 0
+        assert run["obs_rows"]["stream.batches_total"] == 6
+        assert run["obs_rows"]["epoch.publishes_total"] == 6
+    assert set(counts) == set(launches) - {"phase"} == {
+        "frontier", "frontier_pruned", "frontier_wide", "frontier_wide_pruned",
+        "distance", "flash"}
+
+
+def test_stream_counts_join_every_row():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = [dict(name="frontier_scores", launches=17, launches_by_path={"index": 17,
+                                                                        "forest": 8}),
+            dict(name="frontier_scores[wide]", launches=46),
+            dict(name="pairwise_distance_prune", launches=0)]
+    stream = dict(frontier=5, frontier_pruned=30, frontier_wide=20, frontier_wide_pruned=90,
+                  distance=2, flash=0)
+    a, b, c = chip_smoke.with_stream(rows, stream)
+    assert a["launches_by_path"] == {"index": 17, "forest": 8, "stream": 5}
+    assert b["launches_by_path"] == {"lm": 46, "stream": 20} and b["launches"] == 46
+    assert c["launches_by_path"] == {"lm": 0, "stream": 0}
+    assert "launches_by_path" not in rows[1]                  # inputs untouched
 
 
 def test_ptxas_summary_groups_instantiations_and_counts_spills():

@@ -55,6 +55,42 @@ def test_port_runs_with_jax_blocked_and_loads_no_reference_module():
         assert smtree.ST_SPLIT in st.tolist()
         left = st.numpy().copy()
         assert repro_torch.stream.escalate_rows(eng.tree, left, ops, xs, oids) is eng.tree
+        # the stream plane: WAL, epochs, snapshot + restore, a replica, the
+        # forest's two planes, obs, the kNN-LM store's stream and the launcher
+        import os, tempfile
+        from repro_torch import obs
+        from repro_torch.core.distributed import build_forest_trees, place_forest
+        from repro_torch.dist.checkpoint import CheckpointManager
+        from repro_torch.serve.frontend import pinned_knn
+        from repro_torch.serve.knnlm import KnnLmConfig, KnnLmDatastore
+        from repro_torch.launch import serve
+        from repro_torch.stream import (Replica, StreamingEngine, StreamingForest,
+                                        WriteAheadLog, ledger_digest, tree_digest)
+        obs.enable()
+        root = tempfile.mkdtemp()
+        wal = WriteAheadLog(os.path.join(root, "wal"))
+        ck = CheckpointManager(os.path.join(root, "ck"), async_write=False)
+        se = StreamingEngine(eng.tree, wal=wal, ckpt=ck, max_batch=16)
+        se.snapshot()
+        se.delete_batch(X[100:140], np.arange(100, 140))
+        rep = Replica.from_snapshot(os.path.join(root, "ck"), os.path.join(root, "wal"),
+                                    device="cpu", max_batch=16)
+        rep.verify(*ledger_digest(se))
+        trees = build_forest_trees(X, 3, capacity=8, device="cpu")
+        for mesh in (None, "cpu"):
+            sf = StreamingForest(trees, mesh=mesh, rebalance_mode="incremental",
+                                 min_objects=16, max_skew=1.2)
+            sf.delete_batch(X[0:300:3], np.arange(0, 300, 3))
+            assert sf.maintenance()
+        assert pinned_knn(tuple(trees), X[:2], k=3, max_frontier=64)[1].shape == (2, 3)
+        assert place_forest(trees, device="cpu").root.shape == (3,)
+        store = KnnLmDatastore(KnnLmConfig(capacity=8), 6, device="cpu")
+        store.build(X[:200], np.arange(200) % 7)
+        store.enable_stream(shards=2)
+        assert store.evict_batch(np.arange(20)) == 20
+        assert store.knn_logits(X[:2], 7).shape == (2, 7)
+        assert obs.export.metrics_snapshot()["metrics"]["stream.batches_total"] == 5
+        assert serve.parser().parse_args(["--knn-mutate", "--obs"]).knn_mutate
         bad = sorted(m for m, v in sys.modules.items() if v is not None and
                      (m == "jax" or m.startswith("jax.") or m == "repro"
                       or m.startswith("repro.")))

@@ -507,6 +507,37 @@ def test_split_merge_passes_on_card_match_cpu(cuda, metric):
         assert torch.equal(getattr(forests[0], name).cpu(), getattr(forests[1], name)), name
 
 
+@pytest.mark.parametrize("mesh", [None, "stacked"])
+def test_stream_plane_on_card_matches_cpu(cuda, mesh):
+    """``StreamingForest`` (either plane) and ``StreamingEngine`` on the
+    card: a drain of one shard, incremental rebalancing and pinned kNN give
+    the CPU's digests, ownership and results."""
+    from repro_torch.serve.frontend import pinned_knn
+    from repro_torch.stream import StreamingEngine, StreamingForest, tree_digest
+    X = clustered(6000, dims=20, seed=9)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        f = StreamingForest(fd.build_forest_trees(X, 4, capacity=16, device=dev),
+                            mesh=None if mesh is None else dev, max_batch=256,
+                            rebalance_mode="incremental", max_skew=1.3, min_objects=256)
+        for b in range(3):
+            ids = np.arange(0, 6000, 4)[200 * b:200 * (b + 1)]
+            f.delete_batch(X[ids], ids)
+            f.maintenance()
+        for _ in range(4):
+            f.maintenance()
+        eng = StreamingEngine(smtree.bulk_build(X, capacity=16, device=dev), max_batch=256)
+        eng.delete_batch(X[:700], np.arange(700))
+        eng.insert_batch(X[:300] + 1e-3, 9000 + np.arange(300))
+        d, i = pinned_knn(tuple(f.trees), torch.from_numpy(X[:16] + 0.01).to(dev), k=5,
+                          max_frontier=64)
+        runs.append((tree_digest(f.trees), f.owner, f.n_migration_steps,
+                     tree_digest(eng.tree), d.cpu(), i.cpu()))
+    (a, b) = runs
+    assert a[2] > 0 and a[:4] == b[:4]
+    assert torch.equal(a[4], b[4]) and torch.equal(a[5], b[5])
+
+
 def _qkv(rng, dev, b, h, hk, sq, sk, d, dtype):
     t = lambda *shape: torch.from_numpy(
         rng.normal(size=shape).astype(np.float32)).to(dev, dtype)

@@ -8,6 +8,7 @@ Serving: the port's loop on weights converted from the JAX init gives the
 same tokens as ``repro.launch.serve.main``.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -143,12 +144,42 @@ def test_add_batch_and_evict_batch_match_jax():
 
 def test_unported_store_features_raise():
     _, ts, _ = _stores("l2", n=100)
-    for call, part in ((ts.enable_stream, 1), (ts.enable_frontend, 2),
-                       (ts.enable_replication, 2)):
+    for call, part in ((ts.enable_frontend, 2), (ts.enable_replication, 2)):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item 13\.{part}\)"):
             call()
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 13\.4\)"):
         knnlm.KnnLmDatastore(knnlm.KnnLmConfig(), 8, mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("shards", [0, 3])
+def test_stream_store_matches_jax(shards, tmp_path):
+    """``enable_stream`` (one tree, or a forest of ``shards``): batched
+    add/evict with a WAL give the JAX store's trees, the same removal
+    counts and the same kNN log-probs; an epoch pinned before a batch keeps
+    its digest."""
+    from repro.stream import tree_digest as jdigest
+    from repro_torch.stream import tree_digest
+    js, ts, rng = _stores("l2", n=300)
+    kw = dict(shards=shards, max_batch=64)
+    jstream = js.enable_stream(str(tmp_path / "jwal"), **kw)
+    tstream = ts.enable_stream(str(tmp_path / "twal"), **kw)
+    trees = (lambda st: st.trees) if shards else (lambda st: st.tree)
+    new = _queries(rng, 40, 24)
+    vals = rng.integers(0, 97, 40).astype(np.int32)
+    with tstream.epochs.reading() as pinned:
+        before = tree_digest(pinned)
+        np.testing.assert_array_equal(ts.add_batch(new, vals), js.add_batch(new, vals))
+        assert ts.evict_batch(np.arange(10, 60)) == js.evict_batch(np.arange(10, 60)) == 50
+        assert tree_digest(pinned) == before
+    assert tree_digest(trees(tstream)) == jdigest(trees(jstream))
+    if not shards:
+        _assert_same_tree(js, ts)             # engine.tree: the published epoch
+    h = new[:4] + 0.01
+    np.testing.assert_allclose(ts.knn_logits(torch.from_numpy(h), 97).numpy(),
+                               np.asarray(js.knn_logits(jnp.asarray(h), 97)),
+                               rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="add_batch/evict_batch"):
+        ts.evict(70)
 
 
 def _smoke_pair():
@@ -165,20 +196,54 @@ def test_serve_loop_gives_the_jax_tokens(knn):
     want = np.asarray(jserve.main(argv))
     _, _, cfg, params = _smoke_pair()
     args = serve.parser().parse_args(argv + ["--device", "cpu"])
-    store = serve._build_store(cfg, args.lam, "cpu") if knn else None
+    store = serve._build_store(args, cfg, "cpu") if knn else None
     got, timing = serve.serve_loop(args, cfg, params, store)
     assert got.shape == (4, 9) and timing["ms_per_step"] > 0
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shards", [0, 4])
+def test_serve_loop_with_knn_mutate_gives_the_jax_tokens(shards):
+    """``--knn-mutate``: each decode step adds its entries and evicts as
+    many of the oldest through the stream plane (a forest of 4 shards with
+    ``--knn-shards 4``); the tokens are those of the JAX package's
+    ``launch/serve``."""
+    argv = ["--smoke", "--steps", "6", "--prompt-len", "8", "--knn", "--knn-mutate"]
+    argv += ["--knn-shards", str(shards)] if shards else []
+    want = np.asarray(jserve.main(argv))
+    _, _, cfg, params = _smoke_pair()
+    args = serve.parser().parse_args(argv + ["--device", "cpu"])
+    store = serve._build_store(args, cfg, "cpu")
+    got, timing = serve.serve_loop(args, cfg, params, store)
+    np.testing.assert_array_equal(got, want)
+    assert timing["mutations"] == 2 * args.batch * args.steps
+    assert len(store.values) == 2048 + args.batch * args.steps
+
+
+def test_serve_main_obs_snapshot(tmp_path, capsys):
+    from repro_torch import obs
+    out = tmp_path / "obs.json"
+    try:
+        serve.main(["--smoke", "--knn", "--knn-mutate", "--device", "cpu", "--steps", "3",
+                    "--prompt-len", "4", "--obs", "--obs-out", str(out)])
+    finally:
+        obs.disable()
+        obs.reset()
+    line = next(ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[obs] "))
+    snap = json.loads(line[len("[obs] "):])
+    assert snap == json.loads(out.read_text()) and snap["enabled"]
+    m = snap["metrics"]
+    assert m["stream.batches_total"] == 6 and m["stream.rows_total"] == 24
+    assert m["epoch.publishes_total"] == 6
 
 
 def test_serve_main_on_cpu_and_unported_flags():
     toks = serve.main(["--smoke", "--knn", "--device", "cpu", "--steps", "3",
                        "--prompt-len", "4"])
     assert toks.shape == (4, 4) and toks.dtype == np.int32
-    for flag in (["--knn-mutate"], ["--frontend"], ["--replicas", "2"],
-                 ["--knn-shards", "2"], ["--mesh", "host"], ["--obs"],
-                 ["--slo-ms", "5"], ["--cohort-width", "8"],
-                 ["--rebalance-mode", "incremental"], ["--obs-out", "obs.json"]):
+    # --knn-shards without --knn-mutate has no stream to shard
+    for flag in (["--frontend"], ["--replicas", "2"], ["--knn-shards", "2"],
+                 ["--mesh", "host"], ["--slo-ms", "5"], ["--cohort-width", "8"]):
         with pytest.raises(SystemExit):
             serve.main(["--smoke", "--knn", "--device", "cpu"] + flag)
 
