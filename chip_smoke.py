@@ -163,12 +163,34 @@ read just after, apart from the other paths':
       row, per migration step, the skew before and after; one
       stop-the-world rebuild on the side, timed.
 
+The serving path (``run_serve``), counted the same way under
+``launches_by_path.serve``; the launches of its checks (the ticket
+re-runs, the plain-scorer cohort, R1's exact check, R3's live-forest
+reference) are put back by ``uncounted()``:
+
+  R1. serve_frontend: the index slice's 1M-object tree as a
+      ``StreamingEngine`` behind the front-end, 64 closed-loop clients at
+      cohort width 64 and 1 (QPS, p50/p99, mean fill), then the width-64
+      drill while 4 batches of 512 rows (cut from 8) apply, every ticket
+      re-run bitwise on the epoch it names, the wait behind a batch;
+  R2. serve_replication: the WAL shipped over 127.0.0.1 under 5% drop and
+      5% reorder to 2 replicas (catch-up, digest, bytes, lag), then the
+      router's leader, replica and degraded reads;
+  R3. serve_failover: the leader killed mid-batch, a replica promoted
+      under a higher token, the deposed leader fenced out (failover ms);
+      ``promote_follower`` on a forest follower restored from S2's
+      snapshot and WAL, its kNN bitwise to the live forest's;
+  R4. lm_serve_frontend: ``launch/serve --knn --knn-mutate --frontend
+      --replicas 2 --obs`` on phase 10's weights: ms per decode step, the
+      front-end's counters, the replicas' lag, the obs rows and
+      ``fetch_metrics`` over the ship socket.
+
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
 library ms; ``launches_by_path`` gives every path's count apart: ``index``
 and ``forest`` for the narrow rows and the scan, ``lm`` for the LM rows,
-and ``stream`` for all; the distance scan at the index path's shape, with
+and ``stream`` and ``serve`` for all; the distance scan at the index path's shape, with
 its device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -2017,6 +2039,7 @@ def lm_serve_stream(ctx: dict, cfg: dict, device: str):
         check(n_live == 2048, f"S3 {name}: {n_live} live keys, not 2048")
         rows = {k: v for k, v in snap["metrics"].items()
                 if k.split(".")[0] in ("stream", "wal", "epoch")}
+        ctx.setdefault("s3_ms_per_step", timing["ms_per_step"])
         runs[name] = dict(argv=argv, ms_per_decode_step=timing["ms_per_step"],
                           lm_serve_ms_per_decode_step=ctx["lm_ms_per_step"],
                           mutations=timing["mutations"], obs_rows=rows,
@@ -2026,7 +2049,7 @@ def lm_serve_stream(ctx: dict, cfg: dict, device: str):
          wal_rows="none: --knn-mutate runs without a WAL, as the reference's does")
 
 
-def stream_forest(cfg: dict, device: str):
+def stream_forest(cfg: dict, device: str) -> dict:
     """S2: FOREST_FULL's objects over 8 shards as a ``StreamingForest``
     (incremental rebalancing, WAL and checkpoints): a delete stream that
     drains shard 0, ``maintenance()`` after each batch, the first batches
@@ -2035,7 +2058,9 @@ def stream_forest(cfg: dict, device: str):
     (restore + WAL tail = the live forest); forest kNN on a pinned epoch
     through the kernels against the plain scorer and, at the smallest exact
     F, against ``brute_force_knn`` of the live set; one stop-the-world
-    rebuild on the side, timed."""
+    rebuild on the side, timed.  Returns the live forest, its objects, the
+    live ids and the directory of its snapshot and WAL (``root``, which the
+    caller removes; it is removed here only when the phase fails)."""
     import shutil
     import tempfile
 
@@ -2168,26 +2193,33 @@ def stream_forest(cfg: dict, device: str):
                                  rows_ids_checked=int(distinct.sum()))),
              stop_world=dict(seconds=rebuild_s, moved=moved,
                              skew_after=collect_stats(rebuilt).skew))
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
     finally:
         obs.disable()
         obs.reset()
-        shutil.rmtree(root, ignore_errors=True)
+    return dict(root=root, forest=sf, X=X, live=live)
 
 
 def run_stream(ctx: dict, cfg: dict, device: str) -> dict:
     """The stream path (S1, S3, then S2), launch counts zeroed just before
     and read just after, apart from the other paths'.  S1 and S3 score wide
     rows only and S2 narrow rows only, so the frontier counts split by
-    width at the boundary.  Returns the counts by kernel row."""
+    width at the boundary.  Returns the counts by kernel row; ``ctx`` keeps
+    what the serving path needs (the weights, S3's ms per step, S2's live
+    forest with its snapshot and WAL under ``ctx['s2']``)."""
     import torch
     zero_counts()
     stream_datastore(ctx, cfg, device)
     lm_serve_stream(ctx, cfg, device)
     wide = stream_counts()
+    keep = {k: ctx[k] for k in ("params", "mcfg", "V", "lm_ms_per_step", "s3_ms_per_step")}
     ctx.clear()
+    ctx.update(keep)
     if device == "cuda":
         torch.cuda.empty_cache()
-    stream_forest(cfg, device)
+    ctx["s2"] = stream_forest(cfg, device)
     total = stream_counts()
     counts = dict(frontier=total["frontier"] - wide["frontier"],
                   frontier_pruned=total["frontier_pruned"] - wide["frontier_pruned"],
@@ -2204,10 +2236,639 @@ def run_stream(ctx: dict, cfg: dict, device: str) -> dict:
     return counts
 
 
-def with_stream(rows: list, stream: dict) -> list:
-    """Every row of the ``kernels`` line with the stream path's count under
-    ``launches_by_path['stream']`` (the LM rows gain ``launches_by_path``,
-    their slice's count under ``lm``); ``launches`` stays its path's."""
+SERVE_FULL = dict(
+    # R1: the index slice's 1,000,000 clustered 20-d d_inf objects,
+    # capacity 32, k=10, F=64; the reference's coalescing pair
+    # (benchmarks/bench_serve.py: 64 closed-loop clients, width 64 vs 1)
+    n=1_000_000, dims=20, capacity=32, clients=64, widths=(64, 1),
+    per_client={64: 16, 1: 4}, slo_ms=25.0, pool=4096,
+    # the drill's batches: cut from 8 to 4 (with 8 the whole smoke took
+    # 621 s on one H100 whose host ran phase 10's decode step at 122 ms)
+    drill_batches=4, drill_rows=512, drill_min_per_client=4,
+    exact_b=256, exact_fs=(2048, 4096, 8192, 16384),
+    # R2: 2 socket-fed replicas under 5% drop and 5% reorder
+    replicas=2, fault=dict(seed=7, drop_p=0.05, reorder_p=0.05), chunk_bytes=4096,
+    router_b=64,
+    write_rows=64,
+    # R3: the failover drill, then S2's forest follower at b=1024, F=64
+    torn_rows=512, forest_b=1024,
+    # R4: launch/serve at full width with the front-end and 2 replicas
+    # (--knn-mutate: the reference CI's serving run, so the WAL and the
+    # replicas have records to ship)
+    serve_argv=["--knn", "--knn-mutate", "--frontend", "--replicas", "2", "--obs"])
+
+
+class ManualClock:
+    """The lease store's clock: expiry is a step the drill takes, not a
+    sleep (the failover time below leaves the lease's TTL out)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block are a check's, not the path's: every
+    launch counter is put back as it was."""
+    from repro_torch.kernels.distance import pairwise_distance
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.frontier import frontier_scores
+    fields = ((frontier_scores, "launches"), (frontier_scores, "pruned_launches"),
+              (frontier_scores, "wide_launches"), (pairwise_distance, "launches"),
+              (flash_attention_fwd, "launches"))
+    saved = [getattr(o, a) for o, a in fields]
+    try:
+        yield
+    finally:
+        for (o, a), v in zip(fields, saved):
+            setattr(o, a, v)
+
+
+def hist_ms(h) -> dict | None:
+    """count, mean, p50 (a bucket bound) and max of a seconds histogram, in
+    ms; None when it saw nothing."""
+    if h.count == 0:
+        return None
+    return dict(count=h.count, mean=h.mean * 1e3, p50=h.percentile(50) * 1e3,
+                max=h.full_snapshot()["max"] * 1e3)
+
+
+def closed_loop(fe, Q, per_client: int, clients: int, stop=None):
+    """``clients`` closed-loop threads, each submitting one query at a time
+    and waiting for it (``result()`` re-raises a failed cohort), at least
+    ``per_client`` each and on until ``stop`` is set.  Returns (the
+    (query, ticket) pairs, wall seconds)."""
+    import threading
+    start = threading.Barrier(clients + 1)
+    errors, done = [], [[] for _ in range(clients)]
+
+    def client(cid):
+        try:
+            start.wait(60)
+            j = 0
+            while j < per_client or (stop is not None and not stop.is_set()):
+                q = Q[(cid * 7919 + j) % len(Q)]
+                tk = fe.submit(q)
+                tk.result(600)
+                done[cid].append((q, tk))
+                j += 1
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(i,), name=f"client-{i}")
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait(60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=900)
+    dt = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client thread hung")
+    if errors:
+        raise errors[0]
+    return [x for d in done for x in d], dt
+
+
+def recheck_tickets(pins: dict, pairs, F: int, width: int, device: str):
+    """Every ticket's row again through ``pinned_knn`` on the epoch its
+    ticket names, in rows of ``width``: dists and ids bitwise.  Returns the
+    rows checked by epoch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.frontend import pinned_knn
+    by_epoch: dict = {}
+    for q, tk in pairs:
+        by_epoch.setdefault(tk.epoch, []).append((q, tk))
+    with uncounted():
+        for e, rows in by_epoch.items():
+            check(e in pins, f"a ticket names epoch {e}, which the smoke did not pin")
+            for i in range(0, len(rows), width):
+                part = rows[i:i + width]
+                q = torch.from_numpy(np.stack([r[0] for r in part])).to(device)
+                d, ids = pinned_knn(pins[e], q, k=K, max_frontier=F)
+                d, ids = d.cpu(), ids.cpu()
+                for j, (_, tk) in enumerate(part):
+                    check(torch.equal(d[j], tk.dists) and torch.equal(ids[j], tk.ids),
+                          f"epoch {e}: a ticket differs from its row re-run on that epoch")
+    return {int(e): len(r) for e, r in by_epoch.items()}
+
+
+def serve_frontend(ctx: dict, cfg: dict, device: str):
+    """R1: a ``StreamingEngine`` over the 1M-object d_inf tree (with a WAL
+    under a ``FenceGuard``, which R2 ships and R3 fences) behind the
+    front-end: 64 closed-loop clients at cohort width 64 and at width 1,
+    then the width-64 drill while the scheduler applies ``drill_batches``
+    batches of 512 rows (4 at full size, cut from 8), every published
+    epoch pinned by the smoke; every ticket re-run
+    on its epoch, bitwise; one cohort against the plain scorer; the final
+    epoch at the smallest exact F against ``brute_force_knn``."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import smtree
+    from repro_torch.core.distributed import brute_force_knn
+    from repro_torch.data.datagen import clustered
+    from repro_torch.kernels.frontier import frontier_scores_torch
+    from repro_torch.serve.frontend import (FrontendConfig, FrontendStats, ServeFrontend,
+                                            pinned_knn)
+    from repro_torch.stream import StreamingEngine, WriteAheadLog
+    from repro_torch.stream.lease import FenceGuard, LeaseStore
+
+    _, _, wall = timers(device == "cuda")
+    n, dim, root = cfg["n"], cfg["dims"], ctx["root"]
+    X = clustered(n, dims=dim, seed=0)
+    tree0, build_s = wall(lambda: smtree.bulk_build(X, capacity=cfg["capacity"],
+                                                    metric="d_inf", device=device))
+    clock = ManualClock()
+    lease = LeaseStore(f"{root}/lease", ttl_s=5.0, clock=clock)
+    grant = lease.try_acquire("leader")
+    wal = WriteAheadLog(f"{root}/wal", fence=FenceGuard(lease, "leader", grant.token))
+    eng = StreamingEngine(tree0, wal=wal)
+    qrng = np.random.default_rng(31)
+    rows_ = qrng.integers(0, n, cfg["pool"])
+    Q = (X[rows_] + qrng.normal(0, 0.01, (cfg["pool"], dim))).astype(np.float32)
+    e0, t0 = eng.epochs.acquire()
+    pins = {e0: t0}
+
+    widths = {}
+    for width in cfg["widths"]:
+        fe = ServeFrontend(eng, FrontendConfig(cohort_width=width, slo_ms=cfg["slo_ms"],
+                                               k=K, max_frontier=BENCH_F))
+        with fe:
+            fe.knn(Q[:width])                   # first cohort of this width
+            fe.stats = FrontendStats()
+            pairs, dt = closed_loop(fe, Q, cfg["per_client"][width], cfg["clients"])
+        s = fe.stats.snapshot()
+        checked = recheck_tickets(pins, pairs, BENCH_F, 64, device)
+        widths[width] = dict(queries=len(pairs), seconds=dt, qps=len(pairs) / dt,
+                             p50_ms=s["p50_ms"], p99_ms=s["p99_ms"],
+                             mean_fill=s["mean_cohort_fill"], cohorts=s["n_cohorts"],
+                             cohort_ms=hist_ms(fe.stats.cohort_hist), rows_rechecked=checked)
+    w_hi, w_lo = cfg["widths"]
+
+    # the drill: the width-64 clients while drill_batches batches of 512 rows apply
+    mrng = np.random.default_rng(32)
+    gone = mrng.permutation(n)[:cfg["drill_batches"] * cfg["drill_rows"] // 2]
+    new_x, batch_s = [], []
+    stop, werr = threading.Event(), []
+    fe = ServeFrontend(eng, FrontendConfig(cohort_width=w_hi, slo_ms=cfg["slo_ms"],
+                                           k=K, max_frontier=BENCH_F))
+
+    def writer():
+        try:
+            half = cfg["drill_rows"] // 2
+            for i in range(cfg["drill_batches"]):
+                src = mrng.integers(0, n, half)
+                xi = (X[src] + mrng.normal(0, 0.01, (half, dim))).astype(np.float32)
+                new_x.append(xi)
+                dels = gone[i * half:(i + 1) * half]
+                ops = np.concatenate([np.full(half, smtree.OP_INSERT),
+                                      np.full(half, smtree.OP_DELETE)]).astype(np.int32)
+                xs = np.concatenate([xi, X[dels]])
+                oids = np.concatenate([n + i * half + np.arange(half), dels]).astype(np.int32)
+                order = mrng.permutation(len(ops))
+                t_ = time.perf_counter()
+                res = fe.submit_mutations(ops[order], xs[order], oids[order]).result(900)
+                batch_s.append(time.perf_counter() - t_)
+                check(bool((res.statuses == smtree.ST_APPLIED).all()),
+                      f"R1 batch {i}: a row did not apply")
+                e, t = eng.epochs.acquire()     # pin every published epoch
+                pins[e] = t
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            werr.append(exc)
+        finally:
+            stop.set()
+
+    with fe:
+        fe.knn(Q[:w_hi])
+        fe.stats = FrontendStats()
+        wt = threading.Thread(target=writer, name="r1-writer")
+        wt.start()
+        pairs, dt = closed_loop(fe, Q, cfg["drill_min_per_client"], cfg["clients"], stop=stop)
+        wt.join(timeout=900)
+        check(not wt.is_alive(), "R1: the writer hung")
+        if werr:
+            raise werr[0]
+    s = fe.stats.snapshot()
+    check(len(pins) == cfg["drill_batches"] + 1, f"R1: {len(pins)} epochs pinned")
+    checked = recheck_tickets(pins, pairs, BENCH_F, w_hi, device)
+    # one cohort of the last epoch against the plain scorer
+    e_last = max(pins)
+    with uncounted():
+        qp = torch.from_numpy(Q[:w_hi]).to(device)
+        dk, ik = pinned_knn(pins[e_last], qp, k=K, max_frontier=BENCH_F)
+        dp, ip = pinned_knn(pins[e_last], qp, k=K, max_frontier=BENCH_F,
+                            _scorer=frontier_scores_torch)
+        check(torch.equal(dk, dp) and torch.equal(ik, ip),
+              "R1: the kernel and plain descents differ on a cohort")
+    # the final epoch at the smallest exact F against the scan of its live set
+    keep = np.ones(n, bool)
+    keep[gone] = False
+    live_ids = np.concatenate([np.nonzero(keep)[0], n + np.arange(sum(len(x) for x in new_x))])
+    Xlive = np.concatenate([X[keep]] + new_x)
+    qe = torch.from_numpy(Q[:cfg["exact_b"]]).to(device)
+    tried = {}
+    with uncounted():
+        for Fx in cfg["exact_fs"]:
+            tried[Fx] = float(smtree.knn(pins[e_last], qe, k=K, max_frontier=Fx)
+                              .overflow.float().mean())
+            if tried[Fx] == 0.0:
+                break
+        check(tried[Fx] == 0.0, "R1: every exact F overflowed")
+        de, ie = pinned_knn(pins[e_last], qe, k=K, max_frontier=Fx)
+        sd, si = brute_force_knn(torch.from_numpy(Xlive).to(device), qe, k=K + 1,
+                                 device=device)
+    check(torch.equal(de, sd[:, :K]), "R1 exact: dists differ from the scan")
+    distinct = (sd[:, K - 1] != sd[:, K]).cpu()
+    want_ids = torch.from_numpy(live_ids)[si[:, :K].cpu()]
+    check(torch.equal(torch.sort(ie.cpu()[distinct].long(), 1).values,
+                      torch.sort(want_ids[distinct], 1).values),
+          "R1 exact: ids differ from the scan")
+    for e in pins:
+        eng.epochs.release(e)
+    hist = fe.stats
+    emit("serve_frontend", n=n, dims=dim, capacity=cfg["capacity"], k=K,
+         max_frontier=BENCH_F, build_seconds=build_s, clients=cfg["clients"],
+         slo_ms=cfg["slo_ms"], widths={str(w): v for w, v in widths.items()},
+         coalesce_speedup=widths[w_hi]["qps"] / widths[w_lo]["qps"],
+         drill=dict(width=w_hi, batches=cfg["drill_batches"], rows=cfg["drill_rows"],
+                    queries=len(pairs), seconds=dt, qps=len(pairs) / dt,
+                    p50_ms=s["p50_ms"], p99_ms=s["p99_ms"], mean_fill=s["mean_cohort_fill"],
+                    cohorts=s["n_cohorts"], batch_seconds=batch_s,
+                    epochs_pinned=len(pins), rows_rechecked_by_epoch=checked,
+                    cohorts_behind_apply=s["n_cohorts_behind_apply"],
+                    cohort_ms_alone=hist_ms(hist.cohort_hist),
+                    cohort_ms_behind_apply=hist_ms(hist.behind_apply_hist)),
+         tickets_bitwise_on_their_epochs=True, plain_scorer_cohort_bitwise=True,
+         exact=dict(b=cfg["exact_b"], overflow_share_by_F=tried, max_frontier=Fx,
+                    rows_ids_checked=int(distinct.sum())))
+    ctx.update(eng=eng, tree0=tree0, lease=lease, clock=clock, grant=grant, Q=Q, X=X)
+
+
+def serve_replication(ctx: dict, cfg: dict, device: str):
+    """R2: a ``WalShipServer`` on R1's WAL under seeded 5% drop and 5%
+    reorder, and 2 ``ShippedReplica``s on the card caught up through R1's
+    batches (``catch_up`` + ``verify``); then a ``ReplicaRouter`` in front:
+    leader reads, replica reads under a session floor bitwise equal to the
+    leader's at the same seq, and heartbeat-starved degraded reads stamped
+    with their staleness."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import smtree
+    from repro_torch.serve.frontend import FrontendConfig, ServeFrontend
+    from repro_torch.serve.router import ReplicaRouter
+    from repro_torch.stream import StreamingEngine, ledger_digest
+    from repro_torch.stream.faults import FaultInjector, FaultPlan
+    from repro_torch.stream.transport import ShippedReplica, WalShipServer
+
+    eng, tree0, root, Q = ctx["eng"], ctx["tree0"], ctx["root"], ctx["Q"]
+    wal = eng.wal
+    fault = FaultInjector(FaultPlan(**cfg["fault"]))
+    obs.reset()
+    obs.enable()
+    srv = WalShipServer(wal.directory, wal=wal, fault=fault,
+                        chunk_bytes=cfg["chunk_bytes"]).start()
+    ctx["srv"] = srv
+    reps = [ShippedReplica(StreamingEngine(tree0), srv.address, f"{root}/mirror_{i}",
+                           seed=cfg["fault"]["seed"] + i) for i in range(cfg["replicas"])]
+    ctx["reps"] = reps
+    seq, dg = ledger_digest(eng)
+    catch = []
+    for rep in reps:
+        rep.client.poll()
+        rep.replica.note_leader_seq(rep.client.leader_seq)
+        lag0 = rep.lag
+        t_ = time.perf_counter()
+        rep.catch_up(seq, timeout=900)
+        rep.verify(seq, dg, timeout=900)
+        sec = time.perf_counter() - t_
+        catch.append(dict(seconds=sec, records=seq + 1, records_per_s=(seq + 1) / sec,
+                          lag_before=lag0, lag_after=rep.lag, rounds=rep.client.n_rounds,
+                          rejected_chunks=rep.client.n_rejected_chunks,
+                          bytes=dir_bytes(rep.client.mirror_dir), digest_equal=True))
+    shipped = obs.counter("transport.bytes_shipped_total").value
+    obs.disable()
+    check(fault.counts["drop"] + fault.counts["reorder"] > 0, "R2: no fault fired")
+
+    fe = ServeFrontend(eng, FrontendConfig(cohort_width=64, slo_ms=cfg["slo_ms"], k=K,
+                                           max_frontier=BENCH_F)).start()
+    ctx["fe"] = fe
+    router = ReplicaRouter(fe, reps, k=K, max_frontier=BENCH_F)
+    ctx["router"] = router
+    b = cfg["router_b"]
+    qs = Q[:b]
+    t_ = time.perf_counter()
+    dl, il, tks = router.knn(qs)
+    leader_s = time.perf_counter() - t_
+    check(all(t.mode == "leader" for t in tks), "R2: a leader read was not the leader's")
+    # a write: its session floor sends reads to the leader until the
+    # replicas have applied it, then to the replicas
+    wrng = np.random.default_rng(33)
+    w = cfg["write_rows"]
+
+    def write(start):
+        xs = (ctx["X"][wrng.integers(0, cfg["n"], w)] + 0.001).astype(np.float32)
+        return router.mutate(np.full(w, smtree.OP_INSERT, np.int32), xs,
+                             np.arange(start, start + w, dtype=np.int32))
+
+    _, token = write(2_000_000)
+    router.prefer_replicas = True
+    tk = router.query(qs[0], session=token)
+    tk.result(60)
+    check(tk.mode == "leader", "R2: a read under an unmet floor did not go to the leader")
+    for rep in reps:
+        rep.catch_up(token.wal_seq, timeout=600)
+    t_ = time.perf_counter()
+    dr, ir, tkr = router.knn(qs, session=token)
+    replica_s = time.perf_counter() - t_
+    check(all(t.mode == "replica" for t in tkr), "R2: a floor-satisfying read was not a replica's")
+    router.prefer_replicas = False
+    dl2, il2, tkl = router.knn(qs)
+    check(all(t.mode == "leader" for t in tkl), "R2: leader reads")
+    check(torch.equal(dr, dl2) and torch.equal(ir, il2),
+          "R2: replica reads differ from leader reads at the same seq")
+    # degraded: the replicas hold the next write but have not replayed it
+    _, token2 = write(2_100_000)
+    for rep in reps:
+        for _ in range(50):
+            rep.client.poll()
+            rep.replica.note_leader_seq(rep.client.leader_seq)
+            if rep.client.leader_seq >= token2.wal_seq:
+                break
+    router.fault = FaultInjector(FaultPlan(heartbeat_drop_p=1.0))
+    for _ in range(router.miss_limit):
+        router.heartbeat()
+    check(not router.leader_up, "R2: starved heartbeats left the leader up")
+    t_ = time.perf_counter()
+    dd, idd, tkd = router.knn(qs)
+    degraded_s = time.perf_counter() - t_
+    check(all(t.mode == "degraded" for t in tkd), "R2: a leaderless read was not degraded")
+    stal = sorted({t.staleness for t in tkd})
+    check(stal == [1], f"R2: degraded reads stamped {stal}, not one record behind")
+    router.fault = None
+    check(router.heartbeat(), "R2: one healthy heartbeat did not restore the leader")
+    for rep in reps:
+        rep.catch_up(token2.wal_seq, timeout=600)
+    emit("serve_replication", replicas=len(reps), fault=cfg["fault"],
+         fault_counts=dict(fault.counts), wal_records=seq + 1,
+         bytes_shipped=shipped, catch_up=catch,
+         router=dict(b=b, leader_ms_per_read=leader_s * 1e3 / b,
+                     replica_ms_per_read=replica_s * 1e3 / b,
+                     degraded_ms_per_read=degraded_s * 1e3 / b,
+                     replica_reads_bitwise_to_leader=True, floor_seq=token.wal_seq,
+                     degraded_staleness=stal, snapshot=router.snapshot()))
+
+
+def serve_failover(ctx: dict, cfg: dict, device: str):
+    """R3: the chaos drill at full size — the leader, under its
+    ``FenceGuard``, is killed mid-batch (a torn half-frame); reads go on
+    degraded, writes raise ``LeaderUnavailable``; replica 0 is promoted
+    under a higher token to the last acknowledged (seq, digest); the
+    deposed leader's append raises ``FencedOut``; writes flow again after
+    ``set_leader``; failover ms from the kill to the first read.  Then
+    ``promote_follower`` on a forest follower restored from S2's snapshot
+    and WAL, its forest kNN bitwise to the live forest's."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as fd
+    from repro_torch.core import smtree
+    from repro_torch.serve.frontend import FrontendConfig, ServeFrontend
+    from repro_torch.serve.router import LeaderUnavailable
+    from repro_torch.stream import (FencedOut, Replica, WriteAheadLog, iter_wal,
+                                    ledger_digest)
+    from repro_torch.stream.lease import FenceGuard, promote
+    from repro_torch.stream.wal import KIND_BATCH, WalRecord, _encode, _scan_dir
+
+    _, _, wall = timers(device == "cuda")
+    eng, router, reps, Q = ctx["eng"], ctx["router"], ctx["reps"], ctx["Q"]
+    lease, clock, grant = ctx["lease"], ctx["clock"], ctx["grant"]
+    wal = eng.wal
+    seq, dg = ledger_digest(eng)              # the last acknowledged state
+    rng = np.random.default_rng(34)
+    t = cfg["torn_rows"]
+    frame = _encode(WalRecord(KIND_BATCH, seq + 1, ops=np.full(t, smtree.OP_INSERT, np.int8),
+                              oids=np.arange(3_000_000, 3_000_000 + t, dtype=np.int32),
+                              xs=rng.random((t, cfg["dims"])).astype(np.float32)))
+    cut = int(rng.integers(1, len(frame) - 1))
+    t_kill = time.perf_counter()
+    wal.close()
+    with open(os.path.join(wal.directory, _scan_dir(wal.directory)[-1]), "ab") as f:
+        f.write(frame[:cut])
+    ctx.pop("fe").stop()                      # the leader process is gone
+    router.mark_leader_down()
+    tk = router.query(Q[0])
+    tk.result(60)
+    check(tk.mode == "degraded", "R3: a leaderless read was not degraded")
+    try:
+        router.mutate(np.full(1, smtree.OP_INSERT, np.int32), Q[:1], np.array([7], np.int32))
+        check(False, "R3: a write went through with no leader")
+    except LeaderUnavailable:
+        pass
+    clock.t += 6.0                            # the dead leader's lease lapses
+    t_promo = time.perf_counter()
+    promo = promote(reps[0], lease, "replica-0", target=(seq, dg), drain_timeout=900)
+    promo_s = time.perf_counter() - t_promo
+    ctx["promo_wal"] = promo.wal
+    check(promo.lease.token > grant.token, "R3: the promotion did not raise the token")
+    check(promo.applied_seq == seq and promo.digest == dg,
+          "R3: the promoted replica is not at the last acknowledged state")
+    check(seq + 1 not in {r.seq for r in iter_wal(reps[0].client.mirror_dir)},
+          "R3: the torn batch reached the promoted log")
+    fe2 = ServeFrontend(reps[0].follower, FrontendConfig(cohort_width=64, slo_ms=cfg["slo_ms"],
+                                                         k=K, max_frontier=BENCH_F)).start()
+    ctx["fe"] = fe2
+    router.replicas = reps[1:]
+    router.set_leader(fe2)
+    tk = router.query(Q[1])
+    tk.result(60)
+    failover_ms = (time.perf_counter() - t_kill) * 1e3
+    check(tk.mode == "leader", "R3: the first read after promotion was not the leader's")
+    zombie = WriteAheadLog(wal.directory, fence=FenceGuard(lease, "leader", grant.token))
+    try:
+        zombie.append_batch(np.full(1, smtree.OP_INSERT, np.int8), Q[:1],
+                            np.array([7], np.int32))
+        check(False, "R3: the deposed leader appended")
+    except FencedOut:
+        pass
+    finally:
+        zombie.close()
+    _, token = router.mutate(np.full(4, smtree.OP_INSERT, np.int32), Q[:4] + 0.002,
+                             np.arange(3_100_000, 3_100_004, dtype=np.int32))
+    check(token.wal_seq == seq + 1, f"R3: the new leader's first write took seq {token.wal_seq}")
+    tk = router.query(Q[2], session=token)
+    tk.result(60)
+    check(tk.mode == "leader", "R3: a read after the write")
+
+    # promote_follower: a forest follower from S2's snapshot and WAL
+    s2 = ctx["s2"]
+    sf = s2["forest"]
+    qrng = np.random.default_rng(35)
+    live = s2["live"]
+    rows_ = live[qrng.integers(0, len(live), cfg["forest_b"])]
+    Xs = s2["X"]
+    Qf = torch.from_numpy((Xs[rows_] + qrng.normal(0, 0.01, (cfg["forest_b"], Xs.shape[1])))
+                          .astype(np.float32)).to(device)
+    expect = ledger_digest(sf)
+    rep, restore_s = wall(lambda: Replica.from_snapshot(f"{s2['root']}/ck",
+                                                        f"{s2['root']}/wal", device=device))
+    (placed, epoch), promote_s = wall(lambda: fd.promote_follower(
+        rep, device=device, expect=expect, timeout=900))
+    d, i = fd.forest_knn(placed, Qf, k=K, max_frontier=BENCH_F)
+    with uncounted(), sf.epochs.reading() as pinned:
+        dl, il = fd.forest_knn(fd.stack_trees(list(pinned)), Qf, k=K, max_frontier=BENCH_F)
+    check(torch.equal(d, dl) and torch.equal(i, il),
+          "R3: the promoted forest's kNN differs from the live forest's")
+    emit("serve_failover", seq=seq, torn_cut=cut, torn_frame_bytes=len(frame),
+         token_before=grant.token, token_after=promo.lease.token,
+         promote_seconds=promo_s, failover_ms=failover_ms,
+         failover_excludes="the lease's TTL (the store's clock is stepped past it)",
+         digest_equal=True, fenced_out=True, writes_after_promotion_seq=token.wal_seq,
+         forest=dict(n_shards=int(placed.root.shape[0]), restore_seconds=restore_s,
+                     promote_follower_seconds=promote_s, epoch=epoch, seq=expect[0],
+                     b=cfg["forest_b"], max_frontier=BENCH_F, knn_bitwise_to_live=True))
+
+
+def lm_serve_frontend(ctx: dict, cfg: dict, device: str):
+    """R4: ``launch/serve --knn --knn-mutate --frontend --replicas 2 --obs``
+    on phase 10's weights at full width: ms per decode step beside phase
+    10's and S3's, the front-end's counters, the replicas' max lag; the
+    ``[obs]`` snapshot covers the frontend, router, replica, wal and
+    descent rows, and ``fetch_metrics`` over the ship socket returns the
+    same families."""
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    from repro_torch.obs.export import fetch_metrics, metrics_snapshot, missing_rows
+
+    params, mcfg, V = ctx["params"], ctx["mcfg"], ctx["V"]
+    argv = cfg["serve_argv"]
+    args = serve.parser().parse_args(argv + ["--device", device])
+    obs.reset()
+    obs.enable()
+    store = None
+    try:
+        store = serve._build_store(args, mcfg, device)
+        toks, timing = serve.serve_loop(args, mcfg, params, store)
+        store.frontend.drain()
+        for rep in store.replicas:             # the replicas' rows, then the wire
+            rep.catch_up(store.stream.wal.next_seq - 1, timeout=600)
+        fetched = fetch_metrics(store.ship_server.address)
+        fe = serve._finish_frontend(store, args)
+        snap = metrics_snapshot()
+    finally:
+        if store is not None and store.frontend is not None:
+            store.close_replication()
+            store.close_frontend()
+        obs.disable()
+        obs.reset()
+    check(toks.shape == (args.batch, args.steps + 1)
+          and bool(((toks >= 0) & (toks < V)).all()), "R4: bad tokens")
+    families = ["frontend.", "router.", "replica.", "wal.", "descent."]
+    check(missing_rows(snap, families) == [], f"R4: missing {missing_rows(snap, families)}")
+    check(missing_rows(fetched, families) == [],
+          f"R4: fetch_metrics missing {missing_rows(fetched, families)}")
+    fam = lambda s: sorted({k.split(".")[0] for k in s["metrics"]})  # noqa: E731
+    check(set(fam(fetched)) <= set(fam(snap)), "R4: fetch_metrics returned other families")
+    r = fe["router"]
+    check(fe["frontend"]["n_queries"] == args.batch * args.steps, "R4: front-end queries")
+    check(r["max_replica_lag"] == 0, f"R4: replicas ended {r['max_replica_lag']} behind")
+    emit("lm_serve_frontend", arch=mcfg.name, argv=argv,
+         ms_per_decode_step=timing["ms_per_step"],
+         lm_serve_ms_per_decode_step=ctx["lm_ms_per_step"],
+         stream_ms_per_decode_step=ctx.get("s3_ms_per_step"),
+         mutations=timing["mutations"], frontend=fe["frontend"],
+         replicas=dict(n=len(r["replica_lags"]), lags=r["replica_lags"],
+                       max_lag=r["max_replica_lag"], wal_seq=fe["wal_seq"]),
+         obs_families=fam(snap), fetch_metrics_families=fam(fetched),
+         missing_rows=[])
+
+
+def run_serve(ctx: dict, cfg: dict, device: str) -> dict:
+    """The serving path (R1-R4), launch counts zeroed just before and read
+    just after, apart from the other paths'.  R1-R3 score narrow rows only
+    and R4 wide rows only, so the frontier counts split by width at the
+    boundary.  The checks' launches (the ticket re-runs, the plain-scorer
+    cohort, R1's exact-F search and scan, R3's live-forest reference) are
+    put back by ``uncounted()``, so the distance scan, which only a check
+    runs here, counts 0.  Returns the counts by kernel row."""
+    import shutil
+    import tempfile
+
+    import torch
+    ctx["root"] = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    seconds = {}
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        fn(ctx, cfg, device)
+        seconds[name] = time.perf_counter() - t0
+
+    try:
+        zero_counts()
+        phase("R1", serve_frontend)
+        phase("R2", serve_replication)
+        phase("R3", serve_failover)
+        narrow = stream_counts()
+        _close_serve(ctx)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        phase("R4", lm_serve_frontend)
+        total = stream_counts()
+    finally:
+        _close_serve(ctx)
+        shutil.rmtree(ctx.pop("root"), ignore_errors=True)
+        shutil.rmtree(ctx.pop("s2")["root"], ignore_errors=True)
+    counts = dict(frontier=narrow["frontier"], frontier_pruned=narrow["frontier_pruned"],
+                  frontier_wide=total["frontier"] - narrow["frontier"],
+                  frontier_wide_pruned=total["frontier_pruned"] - narrow["frontier_pruned"],
+                  distance=total["distance"], flash=total["flash"])
+    emit("serve_path_launches", **counts, seconds=seconds)
+    if device == "cuda":
+        check(narrow["frontier_wide"] == 0
+              and total["frontier_wide"] == counts["frontier_wide"]
+              + counts["frontier_wide_pruned"],
+              "the serve path's frontier launches do not split by width")
+        for name in ("frontier", "frontier_pruned", "frontier_wide", "frontier_wide_pruned"):
+            check(counts[name] > 0, f"kernel {name} never launched on the serve path")
+    return counts
+
+
+def _close_serve(ctx: dict) -> None:
+    """Stop every thread and socket of R1-R3 and drop their state."""
+    for key in ("fe", "router"):
+        obj = ctx.pop(key, None)
+        if obj is not None:
+            obj.stop()
+    for rep in ctx.pop("reps", []):
+        rep.stop()
+    srv = ctx.pop("srv", None)
+    if srv is not None:
+        srv.stop()
+    wal = ctx.pop("promo_wal", None)
+    if wal is not None:
+        wal.close()
+    for key in ("eng", "tree0", "lease", "clock", "grant", "Q", "X"):
+        ctx.pop(key, None)
+    if "s2" in ctx:
+        ctx["s2"].pop("forest", None)
+
+
+def with_path(rows: list, counts: dict, path: str) -> list:
+    """Every row of the ``kernels`` line with ``path``'s count (the stream
+    path's, the serving path's) under ``launches_by_path[path]`` (the LM
+    rows gain ``launches_by_path``, their slice's count under ``lm``);
+    ``launches`` stays its slice's."""
     key = {"frontier_scores": "frontier", "frontier_scores[parent_prune]": "frontier_pruned",
            "frontier_scores[wide]": "frontier_wide",
            "frontier_scores[wide,parent_prune]": "frontier_wide_pruned",
@@ -2215,7 +2876,7 @@ def with_stream(rows: list, stream: dict) -> list:
     out = []
     for row in rows:
         by_path = dict(row.get("launches_by_path", {"lm": row["launches"]}))
-        by_path["stream"] = stream[key[row["name"]]] if row["name"] in key else 0
+        by_path[path] = counts[key[row["name"]]] if row["name"] in key else 0
         out.append(dict(row, launches_by_path=by_path))
     return out
 
@@ -2252,9 +2913,11 @@ def main() -> int:
     ctx, (wide, wide_pruned, prune, flash) = run_lm(LM_FULL, "cuda")
     torch.cuda.empty_cache()
     stream = run_stream(ctx, STREAM_FULL, "cuda")
+    torch.cuda.empty_cache()
+    serve = run_serve(ctx, SERVE_FULL, "cuda")
     narrow, narrow_pruned, scan = with_forest(index_rows, forest)
-    kernels = with_stream([narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash],
-                          stream)
+    kernels = with_path(with_path([narrow, narrow_pruned, wide, wide_pruned, scan, prune,
+                                   flash], stream, "stream"), serve, "serve")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,9 @@ With a ``torch.distributed`` process group every front runs one shard per
 rank instead: ``forest_knn`` and ``brute_force_knn`` all-gather the
 per-shard candidates before the same merge, and the mutation fronts
 all-reduce their masked rows by sum (the ``psum``).  ``place_forest`` puts
-a host-side forest (a follower's shards) where the fronts serve it;
-``promote_follower`` waits for the lease (ROADMAP Queue 1 item 11).
+a host-side forest (a follower's shards) where the fronts serve it, and
+``promote_follower`` places a replayed follower's pinned epoch there once
+its digest matches the leader's.
 
 Every selection is a stable ascending sort, so equal values come back
 lowest index first, as ``jax.lax.top_k`` gives them.
@@ -133,6 +134,31 @@ def place_forest(trees_or_forest, *, group=None, device=None) -> TreeArrays:
         raise ValueError(f"the group has {dist.get_world_size(group)} ranks for "
                          f"{len(trees)} shards (need exactly one per shard)")
     return _to_device(trees[dist.get_rank(group)], device)
+
+
+def promote_follower(replica, *, group=None, device=None,
+                     expect: tuple[int, str] | None = None,
+                     timeout: float = 30.0):
+    """Bring a replayed follower into service: the failover endgame after
+    ``stream.lease.promote`` hands it the WAL.
+
+    ``replica`` is a ``stream.replica.Replica`` (or ``ShippedReplica``)
+    whose follower is a ``StreamingForest`` (or a ``StreamingEngine``: one
+    shard); ``expect`` is the leader's last ``(seq, digest)`` digest
+    exchange when known — the follower must catch up through it and match
+    bitwise before its shards may serve (``DigestMismatch`` otherwise; a
+    diverged replica would silently answer queries from a different
+    index).  Returns ``(placed, epoch)``: the pinned epoch's shards made
+    resident by :func:`place_forest` (stacked on ``device``, or this
+    rank's shard with ``group``), and the epoch number they came from, for
+    the router's session-token stamping."""
+    if expect is not None:
+        seq, digest = expect
+        replica.verify(seq, digest, timeout=timeout)
+    with replica.epochs.reading(with_epoch=True) as (epoch, pinned):
+        shards = list(pinned) if isinstance(pinned, (tuple, list)) else [pinned]
+        placed = place_forest(shards, group=group, device=device)
+    return placed, epoch
 
 
 def _to_device(tree: TreeArrays, device) -> TreeArrays:

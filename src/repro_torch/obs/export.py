@@ -7,9 +7,9 @@ The snapshot is one flat JSON object — ``{"metrics": {name: value, …},
 and sockets.
 
 Port of ``repro/obs/export.py``.  ``fetch_metrics`` speaks the
-ship-server's socket protocol (``stream/transport.py``), which the port
-does not have yet: it raises ``NotImplementedError`` naming ROADMAP Queue 1
-item 11.
+ship-server's length-framed protocol (the same socket that serves WAL
+pulls, ``stream/transport.py``), so replication deployments get metrics
+exposition on a port they already have open.
 """
 
 from __future__ import annotations
@@ -37,11 +37,22 @@ def render_json(indent: int | None = None) -> str:
 
 
 def fetch_metrics(address, timeout_s: float = 5.0) -> dict:
-    """Pull a metrics snapshot from a running ``WalShipServer``: not ported
-    yet (the socket transport, ROADMAP Queue 1 item 11)."""
-    raise NotImplementedError(
-        "fetch_metrics needs the WAL ship server's socket transport, which "
-        "is not ported yet (ROADMAP Queue 1 item 11)")
+    """Pull a metrics snapshot from a running ``WalShipServer``.
+
+    ``address`` is the ``(host, port)`` the server listens on.  Returns
+    the parsed snapshot dict."""
+    import socket
+
+    # lazy import: obs must stay importable without the stream package
+    from repro_torch.stream import transport as _t
+
+    with socket.create_connection(address, timeout=timeout_s) as conn:
+        conn.settimeout(timeout_s)
+        _t._send_msg(conn, {"kind": "metrics"})
+        header, payload = _t._recv_msg(conn)
+        if header.get("kind") != "metrics":
+            raise RuntimeError(f"unexpected reply kind {header.get('kind')!r}")
+        return json.loads(payload.decode("utf-8"))
 
 
 def missing_rows(snapshot: dict, prefixes) -> list[str]:

@@ -16,9 +16,11 @@ on the card; keys are hidden states, so rows are ``d_model`` wide.
 ``enable_stream`` routes ``add_batch``/``evict_batch`` through the stream
 plane (repro_torch.stream): one batched apply per batch, optionally
 WAL-logged, with retrieval on a pinned epoch; with ``shards > 1`` the store
-becomes a streaming forest.  Not ported yet (ROADMAP Queue 1 item 13, each
-raise naming its part): the serving front-end and replication
-(``enable_frontend``, ``enable_replication``, 13.2) and the mesh (13.4).
+becomes a streaming forest.  ``enable_frontend`` puts the serving
+front-end in front of the stream (retrieval coalesces into epoch-pinned
+cohorts; batches ride its scheduler), and ``enable_replication`` ships the
+WAL over a socket to read replicas behind a ``ReplicaRouter``.  Not ported
+yet: the mesh-sharded store (ROADMAP Queue 1 item 13.4).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import SMTreeEngine
-from repro_torch.core.smtree import ST_APPLIED, resolve_device
+from repro_torch.core.smtree import (OP_DELETE, OP_INSERT, ST_APPLIED,
+                                     resolve_device)
 from repro_torch.models import model as M
 from repro_torch.serve.frontend import pinned_knn
 
@@ -68,6 +71,10 @@ class KnnLmDatastore:
         self._values_dev = None      # device copy of ``values``, made lazily
         self.engine: SMTreeEngine | None = None
         self.stream = None   # StreamingEngine / StreamingForest when enabled
+        self.frontend = None      # serve.frontend.ServeFrontend
+        self.ship_server = None   # stream.transport.WalShipServer
+        self.replicas = []        # stream.transport.ShippedReplica
+        self.router = None        # serve.router.ReplicaRouter
 
     def build(self, keys: np.ndarray, values: np.ndarray):
         self.keys = np.asarray(keys, np.float32)
@@ -140,11 +147,82 @@ class KnnLmDatastore:
             if not isinstance(tree, tuple):
                 self.engine.tree = tree
 
-    def enable_frontend(self, **kw):
-        raise _not_ported("the serving front-end", 2)
+    def enable_frontend(self, **cfg):
+        """Serve retrieval through the async front-end: queries coalesce
+        into epoch-pinned cohorts, ``add_batch``/``evict_batch`` ride the
+        mutation scheduler (applied between epoch publishes) instead of
+        stalling the decode loop.  Requires ``enable_stream`` first."""
+        if self.stream is None:
+            raise ValueError("enable_stream() before enable_frontend()")
+        from repro_torch.serve.frontend import FrontendConfig, ServeFrontend
+        cfg.setdefault("k", self.cfg.k)
+        cfg.setdefault("max_frontier", self.cfg.max_frontier)
+        self.frontend = ServeFrontend(self.stream,
+                                      FrontendConfig(**cfg)).start()
+        return self.frontend
 
-    def enable_replication(self, *args, **kw):
-        raise _not_ported("replication", 2)
+    def close_frontend(self) -> None:
+        if self.frontend is not None:
+            self.frontend.stop()
+            self.frontend = None
+            self._sync_engine_tree()
+
+    def enable_replication(self, mirror_root: str, *, n_replicas: int = 1,
+                           host: str = "127.0.0.1", seed: int = 0):
+        """Fan reads out to ``n_replicas`` socket-fed followers on the
+        store's device: a ``WalShipServer`` serves the stream's WAL
+        directory, each replica mirrors it locally and replays through the
+        identical pipeline, and a ``ReplicaRouter`` in front of the
+        front-end routes queries (leader-first; bounded-staleness degraded
+        reads if the leader dies).  Requires ``enable_stream(wal_dir=...)``
+        — replication is log shipping, there must be a log — and
+        ``enable_frontend``.  Followers start from the leader's currently
+        *published* epoch and tail from there, so enabling mid-stream is
+        safe."""
+        if self.stream is None or self.stream.wal is None:
+            raise ValueError("enable_stream(wal_dir=...) before "
+                             "enable_replication()")
+        if not hasattr(self.stream, "batcher"):
+            raise ValueError(
+                "socket replication here follows single-tree engines; "
+                "forest-sharded stores replicate through "
+                "stream.replica.Replica over a StreamingForest follower")
+        if self.frontend is None:
+            raise ValueError("enable_frontend() before enable_replication()")
+        import os
+
+        from repro_torch.serve.router import ReplicaRouter
+        from repro_torch.stream import StreamingEngine
+        from repro_torch.stream.transport import ShippedReplica, WalShipServer
+        wal = self.stream.wal
+        self.ship_server = WalShipServer(wal.directory, host=host,
+                                         wal=wal).start()
+        start_seq = wal.next_seq - 1
+        _, tree = self.stream.epochs.current()
+        for i in range(n_replicas):
+            follower = StreamingEngine(
+                tree, wal=None, max_batch=self.stream.batcher.max_batch,
+                headroom_frac=self.stream.headroom_frac)
+            rep = ShippedReplica(
+                follower, self.ship_server.address,
+                os.path.join(mirror_root, f"replica_{i:02d}"),
+                start_seq=start_seq, seed=seed + i)
+            self.replicas.append(rep.start())
+        self.router = ReplicaRouter(self.frontend, self.replicas,
+                                    k=self.cfg.k,
+                                    max_frontier=self.cfg.max_frontier)
+        return self.router.start()
+
+    def close_replication(self) -> None:
+        if self.router is not None:
+            self.router.stop()
+            self.router = None
+        for rep in self.replicas:
+            rep.stop()
+        self.replicas = []
+        if self.ship_server is not None:
+            self.ship_server.stop()
+            self.ship_server = None
 
     def _append_history(self, keys: np.ndarray, values: np.ndarray) -> None:
         """Amortised-O(1) append to the oid-indexed key/value history
@@ -170,7 +248,11 @@ class KnnLmDatastore:
         values = np.asarray(values, np.int32)
         oids = (len(self.values) + np.arange(len(values))).astype(np.int32)
         self._append_history(keys, values)
-        if self.stream is not None:
+        if self.frontend is not None:
+            self.frontend.submit_mutations(
+                np.full(len(oids), OP_INSERT, np.int32), keys, oids)
+            self._sync_engine_tree()
+        elif self.stream is not None:
             self.stream.insert_batch(keys, oids)
             self._sync_engine_tree()
         else:
@@ -179,8 +261,15 @@ class KnnLmDatastore:
         return oids
 
     def evict_batch(self, oids: np.ndarray) -> int:
-        """Batched online eviction; returns the number of entries removed."""
+        """Batched online eviction; returns the number of entries removed
+        (with the front-end on, the number *submitted*: the scheduler
+        applies the batch between epoch publishes)."""
         oids = np.asarray(oids, np.int32)
+        if self.frontend is not None:
+            self.frontend.submit_mutations(
+                np.full(len(oids), OP_DELETE, np.int32), self.keys[oids], oids)
+            self._sync_engine_tree()
+            return len(oids)
         if self.stream is None:
             return sum(self.evict(int(o)) for o in oids)
         res = self.stream.delete_batch(self.keys[oids], oids)
@@ -194,8 +283,13 @@ class KnnLmDatastore:
         With the stream enabled the descent runs against a *pinned* epoch
         (``EpochManager.reading``; one tree, or a forest's shards merged by
         ``pinned_knn``), so a writer can publish and retire versions
-        without ever touching the tree this query descends."""
-        if self.stream is None:
+        without ever touching the tree this query descends.  With the
+        front-end on, the ``[b, D]`` block is admitted as b tickets and
+        lands in epoch-pinned cohorts beside any other traffic."""
+        if self.frontend is not None:
+            d, ids = self.frontend.knn(torch.as_tensor(h).float().cpu().numpy())
+            d, ids = d.to(self.device), ids.to(self.device)
+        elif self.stream is None:
             res = self.retrieve(h)
             if obs.want_level_stats():      # sampled, as the stream paths
                 obs.observe_query_result(res)

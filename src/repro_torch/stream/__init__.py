@@ -16,13 +16,19 @@ of ``repro/stream``:
     + WAL-tail restore (bitwise-deterministic, across the two packages).
   * ``replica``   — followers that tail the leader's WAL and verify their
     epochs by digest exchange.
-
-The socket transport, the lease and fault injection are not ported yet
-(ROADMAP Queue 1 item 11).
+  * ``transport`` — WAL shipping over a socket (``WalShipServer``,
+    ``WalShipClient``, ``ShippedReplica``); a mirror segment is sealed only
+    at the leader's length.
+  * ``lease``     — leases with monotonic fencing tokens, the WAL's
+    ``FenceGuard`` and ``promote`` (failover).
+  * ``faults``    — the seeded fault injector of the chaos drills.
 """
 from repro_torch.stream.batcher import (MutationBatcher, cut_cohorts,
                                         escalate_rows)
 from repro_torch.stream.epoch import EpochManager
+from repro_torch.stream.faults import NO_FAULTS, FaultInjector, FaultPlan
+from repro_torch.stream.lease import (FenceGuard, Lease, LeaseLost, LeaseStore,
+                                      Promotion, promote)
 from repro_torch.stream.pipeline import StreamingEngine, StreamingForest
 from repro_torch.stream.rebalance import (GeometryMismatch, MigrationPlan,
                                           MigrationStep, check_geometry,
@@ -30,6 +36,9 @@ from repro_torch.stream.rebalance import (GeometryMismatch, MigrationPlan,
                                           plan_migration, rebalance_shards)
 from repro_torch.stream.replica import (DigestMismatch, Replica,
                                         ledger_digest, tree_digest)
+from repro_torch.stream.transport import (ShippedReplica, ShipStall,
+                                          TransportError, WalShipClient,
+                                          WalShipServer)
 from repro_torch.stream.wal import (FencedOut, WalCursor, WalTailStall,
                                     WriteAheadLog, iter_wal, tail_wal)
 
@@ -39,4 +48,7 @@ __all__ = ["MutationBatcher", "cut_cohorts", "escalate_rows", "EpochManager",
            "needs_rebalance", "plan_migration", "rebalance_shards",
            "DigestMismatch", "Replica", "ledger_digest", "tree_digest",
            "FencedOut", "WalCursor", "WalTailStall", "WriteAheadLog",
-           "iter_wal", "tail_wal"]
+           "iter_wal", "tail_wal", "FaultInjector", "FaultPlan", "NO_FAULTS",
+           "FenceGuard", "Lease", "LeaseLost", "LeaseStore", "Promotion",
+           "promote", "ShippedReplica", "ShipStall", "TransportError",
+           "WalShipClient", "WalShipServer"]

@@ -60,8 +60,7 @@ KIND_MIGRATION_STEP = "migration_step"
 
 class FencedOut(RuntimeError):
     """A deposed leader tried to append: its fencing token is stale (a
-    newer leader holds the lease — stream/lease.py, not ported yet:
-    ROADMAP Queue 1 item 11).  The append never
+    newer leader holds the lease — stream/lease.py).  The append never
     reached the log, so the write was never acknowledged and is cleanly
     the *client's* to retry against the new leader."""
 
@@ -331,7 +330,7 @@ class WriteAheadLog:
     Single-threaded callers see plain per-append fsync behaviour.
 
     ``fence`` (settable post-construction too — failover attaches it at
-    promotion, stream/lease.py, not ported yet) is a zero-arg callable run under the
+    promotion, stream/lease.py) is a zero-arg callable run under the
     append lock before every frame write; it raises ``FencedOut`` when
     this writer's lease/fencing token is stale.  A fenced append touches
     neither the log nor ``next_seq``, so a deposed leader can never

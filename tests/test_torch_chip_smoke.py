@@ -47,6 +47,14 @@ STREAM_TINY = dict(
     serve_argvs={"knn_mutate": ["--knn", "--knn-mutate", "--obs"] + LM_ARGV,
                  "knn_shards4": ["--knn", "--knn-mutate", "--knn-shards", "4", "--obs"]
                  + LM_ARGV})
+SERVE_TINY = dict(
+    n=3000, dims=6, capacity=8, clients=4, widths=[8, 1], per_client={8: 4, 1: 2},
+    slo_ms=5.0, pool=256, drill_batches=3, drill_rows=40, drill_min_per_client=2,
+    exact_b=8, exact_fs=[64, 256, 1024, 4096], replicas=2,
+    fault=dict(seed=7, drop_p=0.05, reorder_p=0.05), chunk_bytes=64, router_b=8,
+    write_rows=8,
+    torn_rows=16, forest_b=16,
+    serve_argv=["--knn", "--knn-mutate", "--frontend", "--replicas", "2", "--obs"] + LM_ARGV)
 KEYS = {"name", "route", "source", "replaces", "launches", "launches_per_pass",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
@@ -163,17 +171,22 @@ def test_forest_counts_join_the_index_rows():
 
 @pytest.fixture(scope="module")
 def lm_and_stream():
-    """The kNN-LM slice, then the stream path (S1-S3) on its state, in one
-    rehearsal."""
+    """The kNN-LM slice, then the stream path (S1-S3) and the serving path
+    (R1-R4) on its state, in one rehearsal."""
     cfg = json.loads(json.dumps(LM_TINY))
-    return _rehearse(f"(lambda ctx, rows: [rows, run_stream(ctx, {STREAM_TINY!r}, 'cpu')])"
+    serve = json.loads(json.dumps(SERVE_TINY))
+    serve["per_client"] = {int(k): v for k, v in serve["per_client"].items()}
+    return _rehearse(f"(lambda ctx, rows: [rows, run_stream(ctx, {STREAM_TINY!r}, 'cpu'), "
+                     f"run_serve(ctx, {serve!r}, 'cpu')])"
                      f"(*run_lm({cfg!r}, 'cpu'))",
                      keep=("knnlm_batched_evict", "stream_datastore", "stream_forest",
-                           "lm_serve_stream", "stream_path_launches"))
+                           "lm_serve_stream", "stream_path_launches", "serve_frontend",
+                           "serve_replication", "serve_failover", "lm_serve_frontend",
+                           "serve_path_launches"))
 
 
 def test_lm_slice_rehearses_on_the_cpu(lm_and_stream):
-    phases, (rows, _), ev, *_ = lm_and_stream
+    phases, (rows, *_), ev, *_ = lm_and_stream
     assert phases[:8] == ["kernel_frontier_wide", "kernel_flash", "kernel_distance_prune",
                           "lm_serve", "knnlm_datastore", "lm_path_launches",
                           "knnlm_batched_evict", "frontier_replay"]
@@ -192,9 +205,9 @@ def test_lm_slice_rehearses_on_the_cpu(lm_and_stream):
 
 
 def test_stream_path_rehearses_on_the_cpu(lm_and_stream):
-    phases, (_, counts), _, s1, s2, s3, launches = lm_and_stream
-    assert phases[8:] == ["stream_datastore", "lm_serve_stream", "stream_forest",
-                          "stream_path_launches"]
+    phases, (_, counts, _), _, s1, s2, s3, launches, *_ = lm_and_stream
+    assert phases[8:12] == ["stream_datastore", "lm_serve_stream", "stream_forest",
+                            "stream_path_launches"]
     # S1: the batches through the stream, each beside a pinned epoch
     n_ev = LM_TINY["ds_evict"]
     assert s1["batches"]["evict"]["rows"] == s1["batches"]["add"]["rows"] == n_ev
@@ -236,11 +249,16 @@ def test_stream_counts_join_every_row():
             dict(name="pairwise_distance_prune", launches=0)]
     stream = dict(frontier=5, frontier_pruned=30, frontier_wide=20, frontier_wide_pruned=90,
                   distance=2, flash=0)
-    a, b, c = chip_smoke.with_stream(rows, stream)
+    a, b, c = chip_smoke.with_path(rows, stream, "stream")
     assert a["launches_by_path"] == {"index": 17, "forest": 8, "stream": 5}
     assert b["launches_by_path"] == {"lm": 46, "stream": 20} and b["launches"] == 46
     assert c["launches_by_path"] == {"lm": 0, "stream": 0}
     assert "launches_by_path" not in rows[1]                  # inputs untouched
+    serve = dict(stream, frontier=7, frontier_wide=3)
+    a, b, c = chip_smoke.with_path([a, b, c], serve, "serve")
+    assert a["launches_by_path"] == {"index": 17, "forest": 8, "stream": 5, "serve": 7}
+    assert b["launches_by_path"] == {"lm": 46, "stream": 20, "serve": 3}
+    assert c["launches_by_path"]["serve"] == 0 and a["launches"] == 17
 
 
 def test_ptxas_summary_groups_instantiations_and_counts_spills():
@@ -268,3 +286,39 @@ def test_ptxas_summary_groups_instantiations_and_counts_spills():
                                    "spilling": ["<1,0,1>"]},
         "frontier_wide_kernel": {"instances": 1, "registers": [72, 72], "spill_bytes": 0,
                                  "spilling": []}}
+
+
+@pytest.mark.timeout(600)
+def test_serve_path_rehearses_on_the_cpu(lm_and_stream):
+    phases, (_, _, counts), *kept = lm_and_stream
+    r1, r2, r3, r4, launches = kept[-5:]
+    assert phases[12:] == ["serve_frontend", "serve_replication", "serve_failover",
+                           "lm_serve_frontend", "serve_path_launches"]
+    # R1: both widths served every client's queries; the drill pinned every
+    # epoch and re-ran every ticket on it, bitwise
+    w_hi, w_lo = (str(w) for w in SERVE_TINY["widths"])
+    assert r1["widths"][w_hi]["queries"] == SERVE_TINY["clients"] * 4
+    assert r1["widths"][w_lo]["mean_fill"] == 1.0
+    assert r1["widths"][w_hi]["mean_fill"] > 1.0 and r1["coalesce_speedup"] > 0
+    d = r1["drill"]
+    assert d["epochs_pinned"] == SERVE_TINY["drill_batches"] + 1
+    assert sum(d["rows_rechecked_by_epoch"].values()) == d["queries"]
+    assert len(d["batch_seconds"]) == SERVE_TINY["drill_batches"]
+    assert d["cohorts_behind_apply"] <= d["cohorts"]
+    assert r1["tickets_bitwise_on_their_epochs"] and r1["plain_scorer_cohort_bitwise"]
+    # R2: the replicas caught up under faults; the router's three modes
+    assert [c["digest_equal"] for c in r2["catch_up"]] == [True, True]
+    assert all(c["lag_after"] == 0 and c["bytes"] > 0 for c in r2["catch_up"])
+    assert r2["bytes_shipped"] > 0
+    assert r2["router"]["replica_reads_bitwise_to_leader"]
+    assert r2["router"]["degraded_staleness"] == [1]
+    # R3: promoted at the acknowledged state under a higher token
+    assert r3["token_after"] > r3["token_before"] and r3["digest_equal"] and r3["fenced_out"]
+    assert r3["writes_after_promotion_seq"] == r3["seq"] + 1 and r3["failover_ms"] > 0
+    assert r3["forest"]["knn_bitwise_to_live"]
+    # R4: the launcher with the front-end and 2 replicas
+    assert r4["frontend"]["n_queries"] == 2 * 3 and r4["replicas"]["max_lag"] == 0
+    assert r4["missing_rows"] == [] and {"frontend", "router", "replica", "wal",
+                                         "descent"} <= set(r4["fetch_metrics_families"])
+    assert set(counts) == set(launches) - {"phase", "seconds"}
+    assert set(launches["seconds"]) == {"R1", "R2", "R3", "R4"}

@@ -102,6 +102,63 @@ def test_port_runs_with_jax_blocked_and_loads_no_reference_module():
     assert proc.stdout.split() == ["ok", "3"]
 
 
+@pytest.mark.timeout(300)
+def test_serving_plane_runs_with_jax_blocked():
+    """The serving plane's modules (faults, transport, lease, front-end,
+    router, ``promote_follower``, ``fetch_metrics``) import and run a
+    shipped replica, a promotion and a routed read with ``jax`` blocked."""
+    proc = _run("""
+        import sys
+        sys.modules["jax"] = None
+        import os, tempfile
+        import numpy as np
+        from repro_torch.core import smtree
+        from repro_torch.core.distributed import promote_follower
+        from repro_torch.obs.export import fetch_metrics
+        from repro_torch.serve.frontend import FrontendConfig, ServeFrontend
+        from repro_torch.serve.router import ReplicaRouter
+        from repro_torch.stream import (StreamingEngine, WriteAheadLog, ledger_digest)
+        from repro_torch.stream.faults import FaultInjector, FaultPlan
+        from repro_torch.stream.lease import LeaseStore, promote
+        from repro_torch.stream.transport import ShippedReplica, WalShipServer
+        X = np.random.default_rng(0).random((200, 6)).astype(np.float32)
+        tree = smtree.bulk_build(X, capacity=8, device="cpu")
+        root = tempfile.mkdtemp()
+        wal = WriteAheadLog(os.path.join(root, "wal"), segment_max_records=2)
+        leader = StreamingEngine(tree, wal=wal)
+        fe = ServeFrontend(leader, FrontendConfig(cohort_width=2, k=2)).start()
+        srv = WalShipServer(wal.directory, wal=wal,
+                            fault=FaultInjector(FaultPlan(seed=1, drop_p=0.2))).start()
+        rep = ShippedReplica(StreamingEngine(tree), srv.address, os.path.join(root, "m"))
+        try:
+            router = ReplicaRouter(fe, [rep], k=2)
+            for i in range(3):
+                router.mutate(np.ones(4, np.int32), X[:4] + 0.01 * (i + 1),
+                              np.arange(1000 + 4 * i, 1004 + 4 * i, dtype=np.int32))
+            seq, dg = ledger_digest(leader)
+            rep.catch_up(seq)
+            assert router.query(X[0]).result(30)[1].shape == (2,)
+            assert "metrics" in fetch_metrics(srv.address)
+            placed, epoch = promote_follower(rep, device="cpu", expect=(seq, dg))
+            store = LeaseStore(os.path.join(root, "lease"), ttl_s=0.0)
+            wal.close()
+            promo = promote(rep, store, "f", target=(seq, dg))
+            assert promo.digest == dg and placed.root.shape == (1,)
+            promo.wal.close()
+        finally:
+            fe.stop()
+            rep.stop()
+            srv.stop()
+        bad = sorted(m for m, v in sys.modules.items() if v is not None and
+                     (m == "jax" or m.startswith("jax.") or m == "repro"
+                      or m.startswith("repro.")))
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

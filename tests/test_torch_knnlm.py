@@ -143,10 +143,16 @@ def test_add_batch_and_evict_batch_match_jax():
 
 
 def test_unported_store_features_raise():
+    """The front-end and replication are ported (13.2): out of order they
+    raise the reference's ValueErrors.  The mesh store (13.4) is not."""
     _, ts, _ = _stores("l2", n=100)
-    for call, part in ((ts.enable_frontend, 2), (ts.enable_replication, 2)):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item 13\.{part}\)"):
-            call()
+    with pytest.raises(ValueError, match=r"enable_stream\(\) before enable_frontend"):
+        ts.enable_frontend()
+    with pytest.raises(ValueError, match=r"enable_stream\(wal_dir=\.\.\.\) before"):
+        ts.enable_replication("unused")
+    ts.enable_stream()
+    with pytest.raises(ValueError, match=r"enable_stream\(wal_dir=\.\.\.\) before"):
+        ts.enable_replication("unused")
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 13\.4\)"):
         knnlm.KnnLmDatastore(knnlm.KnnLmConfig(), 8, mesh=object(), device="cpu")
 
@@ -241,11 +247,16 @@ def test_serve_main_on_cpu_and_unported_flags():
     toks = serve.main(["--smoke", "--knn", "--device", "cpu", "--steps", "3",
                        "--prompt-len", "4"])
     assert toks.shape == (4, 4) and toks.dtype == np.int32
-    # --knn-shards without --knn-mutate has no stream to shard
-    for flag in (["--frontend"], ["--replicas", "2"], ["--knn-shards", "2"],
-                 ["--mesh", "host"], ["--slo-ms", "5"], ["--cohort-width", "8"]):
+    # the reference's flag rules: --replicas needs --frontend, --knn-shards
+    # needs a stream and does not compose with --replicas; the mesh is not
+    # ported (the front-end's own flags parse: test_torch_serve_e2e.py)
+    for flag in (["--replicas", "2"], ["--knn-shards", "2"],
+                 ["--knn-shards", "2", "--frontend", "--replicas", "1"],
+                 ["--mesh", "host"]):
         with pytest.raises(SystemExit):
             serve.main(["--smoke", "--knn", "--device", "cpu"] + flag)
+    args = serve.parser().parse_args(["--frontend", "--slo-ms", "5", "--cohort-width", "8"])
+    assert args.frontend and args.slo_ms == 5.0 and args.cohort_width == 8
 
 
 def test_decode_with_knnlm_matches_jax():
