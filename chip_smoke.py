@@ -87,8 +87,9 @@ and read just after, so that the index slice's counts stay comparable:
 The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
 
   7. kernel_frontier_wide: the frontier scorer's wide-row variant bitwise
-     against the plain version at b=64, F=128, cap=32, dim 2048/896/1023,
-     d_inf/l2/l1, filter off and on, timed at dim 2048;
+     against the plain version at b=64, F=128, cap=32, dim 2048/896/1023/
+     4096, d_inf/l2/l1, filter off and on, timed at the served key widths
+     2048 (the rows' ms and bound) and 4096 (jamba's; the rows' ``by_dim``);
   8. kernel_flash: the flash kernel against ``flash_attention_torch`` at
      the prefill shape [4, 16, 2048, 128] causal (f32 within 2e-4, bf16
      within 1e-2) and at GQA g=8 with sq != sk, causal and not; times of
@@ -109,8 +110,8 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
   11. knnlm_datastore: 65,536 keys tapped from the model's final hidden
       states (32 x 2048 synthetic tokens), bulk build, retrieval at b=4
       and b=64 (k=8, F=128) with the kernel descent held bitwise against
-      the plain-scorer descent, evict_before(256) through Delete (cut from
-      1,024 to keep the run under ~450 s; the batched paths keep 1,024),
+      the plain-scorer descent, evict_before(64) through Delete (cut from
+      1,024 to keep the run under ~560 s; the batched paths keep 1,024),
       validate(), and the bitwise check again; then the slice's launch
       counts;
   and, outside the counts,
@@ -185,12 +186,39 @@ reference) are put back by ``uncounted()``:
       front-end's counters, the replicas' lag, the obs rows and
       ``fetch_metrics`` over the ship socket.
 
+The MoE and Mamba block families (``run_lm_families``), after the serving
+path has let qwen2.5-3b's weights and the datastores go, each phase
+counted apart under ``launches_by_path.lm_moe`` / ``lm_hybrid``:
+
+  L1. lm_moe: qwen2-moe-a2.7b at full width and depth in f32 (exactly
+      14,315,735,040 parameters, seeded random weights): a prefill at b=4,
+      s=2048 through ``make_prefill_step`` (24 flash launches), its aux
+      (lb_loss, z_loss, drop_frac) and peak memory, held against the same
+      prefill through the plain attention on the tokens whose routing
+      agreed in every MoE layer (the share of routings that differ is
+      printed and bounded by 1e-3; the kernel run's logits wait on the
+      host, so one [4, 2048, 151936] tensor is on the card at a time);
+      where its device time goes (one torch.profiler run: by kernel, and
+      by layer kind from the blocks' ``block.<kind>`` ranges); then
+      ``launch/serve --arch qwen2-moe-a2.7b --knn`` (b=4, prompt 32, 16
+      steps, a 2048-key store of width 2048: the wide frontier kernel),
+      and the served store's retrieval at b=4 against the plain-scorer
+      descent, bitwise;
+  L2. lm_hybrid: jamba-v0.1-52b at full width cut to one 8-layer period
+      (13,295,235,072 parameters; all 32 layers are 206 GB in f32): the
+      same prefill checks (1 flash launch, 8 chunks of the scan a Mamba
+      layer), decode over a 64-token prompt against a forward made
+      dropless like it (capacity factor E / k), then ``launch/serve --arch
+      jamba-v0.1-52b --knn`` (keys of width 4096) with the same retrieval
+      check.
+
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
 library ms; ``launches_by_path`` gives every path's count apart: ``index``
-and ``forest`` for the narrow rows and the scan, ``lm`` for the LM rows,
-and ``stream`` and ``serve`` for all; the distance scan at the index path's shape, with
+and ``forest`` for the narrow rows and the scan, ``lm``, ``lm_moe`` and
+``lm_hybrid`` for the LM rows, and ``stream`` and ``serve`` for all; the
+distance scan at the index path's shape, with
 its device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no
@@ -200,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -224,10 +253,14 @@ LM_FULL = dict(
     arch="qwen2.5-3b", smoke=False, prefill_b=4, prefill_s=2048,
     serve_argv=["--knn"],                 # b=4, prompt 32, 16 steps
     # ds_evict: the batched evictions' count (11b, S1); ds_evict_before:
-    # phase 11's one-Delete-at-a-time evict_before, cut from 1,024 to 256
-    # ids (~140 s to ~35 s) to keep the whole run under ~450 s
-    ds_seqs=32, ds_len=2048, ds_chunk=4, ds_evict=1024, ds_evict_before=256, ret_bs=(4, 64),
-    wide_b=64, wide_F=128, wide_cap=32, wide_N=4096, wide_dims=(2048, 896, 1023),
+    # phase 11's one-Delete-at-a-time evict_before, cut from 1,024 to 64
+    # ids (~140 s to ~9 s; 256 took 34 s) to keep the whole run, the
+    # model families' pass included, under ~560 s
+    ds_seqs=32, ds_len=2048, ds_chunk=4, ds_evict=1024, ds_evict_before=64, ret_bs=(4, 64),
+    # wide_dims: every one held bitwise; wide_timed: the served key widths
+    # (qwen2.5-3b's and qwen2-moe's 2048, jamba's 4096), timed and bounded
+    wide_b=64, wide_F=128, wide_cap=32, wide_N=4096, wide_dims=(2048, 896, 1023, 4096),
+    wide_timed=(2048, 4096),
     flash_cases={                         # b, h, hk, sq, sk, d, causal, dtype
         "path_f32": (4, 16, 16, 2048, 2048, 128, True, "float32"),
         "path_bf16": (4, 16, 16, 2048, 2048, 128, True, "bfloat16"),
@@ -235,6 +268,18 @@ LM_FULL = dict(
         "gqa8_noncausal_sq>sk": (2, 16, 2, 700, 300, 128, False, "float32"),
         "gqa8_bf16": (1, 16, 2, 512, 1024, 128, True, "bfloat16")},
     prune_nq=1024, prune_ne=65_536, prune_d=20, timing_reps=5)
+# the MoE and Mamba block families (run_lm_families), f32, seeded random
+# weights: qwen2-moe-a2.7b at full width and depth, then jamba-v0.1-52b at
+# full width cut to one 8-layer period (all 32 layers are 206 GB in f32);
+# ``params`` pins each model's exact parameter count (the reference's
+# ``exact_param_count``, held by tests/test_torch_models.py)
+LM_FAMILIES_FULL = dict(
+    moe=dict(arch="qwen2-moe-a2.7b", smoke=False, overrides={}, params=14_315_735_040,
+             prefill_b=4, prefill_s=2048, serve_argv=["--arch", "qwen2-moe-a2.7b", "--knn"]),
+    hybrid=dict(arch="jamba-v0.1-52b", smoke=False, overrides={"n_layers": 8},
+                params=13_295_235_072, prefill_b=4, prefill_s=2048, decode_b=4,
+                decode_len=64, serve_argv=["--arch", "jamba-v0.1-52b", "--knn"]),
+    max_flip_share=1e-3, timing_reps=2)
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
 H100_TF32_FLOP_PER_S = 495e12     # tensor cores, dense (H100 SXM data sheet)
@@ -382,6 +427,76 @@ def device_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profile_device(fn, wall_ms: float, on_card: bool = True) -> dict:
+    """Device time of one ``fn()`` by kernel (torch.profiler): busy ms, the
+    idle share of ``wall_ms``, the flash kernel's share, the top 8 kernels,
+    and by layer kind (``blocks``: calls and summed device-side spans, first
+    kernel's start to last kernel's end, of each ``block.<kind>`` range
+    that models/transformer.py opens around a block's mixer and FFN; a
+    span holds any idle gap inside it, and flash counts inside ``attn``).
+    The spans are kineto's device-side copies of the ranges: the host-side
+    ranges' ``device_time_total`` counts some kernels under more than one
+    op, so its sums can exceed the busy time.  Off the card only the
+    host-side ranges' calls (span None)."""
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+    blocks = {}
+    for ev in prof.events():
+        if ev.name.startswith("block.") and (ev.device_type == DeviceType.CUDA) == on_card:
+            b = blocks.setdefault(ev.name.removeprefix("block."),
+                                  dict(span_ms=0.0 if on_card else None, calls=0))
+            b["calls"] += 1
+            if on_card:
+                b["span_ms"] += (ev.time_range.end - ev.time_range.start) / 1e3
+    if not on_card:
+        return dict(blocks=blocks)
+    # the ranges' device-side copies are not kernels
+    kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.key.startswith("block.")]
+    kern.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
+    busy = sum(ev.self_device_time_total for ev in kern) / 1e3
+    flash = sum(ev.self_device_time_total for ev in kern
+                if "flash_fwd_kernel" in ev.key) / 1e3
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+                flash_ms=flash, flash_share_of_busy=flash / busy if busy else 0.0,
+                blocks=blocks,
+                kernels=[dict(name=ev.key[:72], ms=ev.self_device_time_total / 1e3,
+                              calls=ev.count) for ev in kern[:8]])
+
+
+def profile_decode_knn(params, mcfg, store, tokens, lam: float) -> dict:
+    """``profile_device`` of one cached decode step at position 0 that
+    mixes the store's kNN log-probs in, as ``launch/serve`` does."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve.knnlm import mix_logits
+    dev = params.embed.device
+    cache = M.init_cache(mcfg, len(tokens), 8, device=dev)
+    tok = torch.as_tensor(tokens).to(dev)
+    V = mcfg.padded_vocab
+
+    def decode_knn():
+        logits, _ = M.decode_step(params, mcfg, tok, cache, 0)
+        h = params.embed[tok.long()].float()
+        return mix_logits(logits, store.knn_logits(h, V), lam).argmax(-1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_knn()
+    torch.cuda.synchronize()
+    return profile_device(decode_knn, (time.perf_counter() - t0) * 1e3)
 
 
 def recorder(calls: list, pages: dict):
@@ -1391,7 +1506,7 @@ def run_lm(cfg: dict, device: str):
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.models.transformer import hidden_states
-    from repro_torch.serve.knnlm import KnnLmConfig, KnnLmDatastore, mix_logits
+    from repro_torch.serve.knnlm import KnnLmConfig, KnnLmDatastore
     from repro_torch.serve.serve_step import make_prefill_step
 
     on_card = device == "cuda"
@@ -1437,7 +1552,7 @@ def run_lm(cfg: dict, device: str):
                     check(torch.equal(g, w), f"wide frontier dim={dim} {metric} "
                                              f"prune={prune} {name} not bitwise")
                 row = dict(bitwise=True)
-                if dim == cfg["wide_dims"][0]:
+                if dim in cfg["wide_timed"]:
                     nbytes, nops, n_live = frontier_traffic(fids, queries, want, cap, prune)
                     bms, by = bound(nbytes, nops)
                     row.update(ms=time_ms(lambda: frontier_scores(*args, **kw)),
@@ -1450,7 +1565,8 @@ def run_lm(cfg: dict, device: str):
         del vecs, queries, fids
         free()
     emit("kernel_frontier_wide", shapes=dict(b=b, F=F, cap=cap, N=N,
-                                             dims=list(cfg["wide_dims"])),
+                                             dims=list(cfg["wide_dims"]),
+                                             timed=list(cfg["wide_timed"])),
          bitwise=True, results=wide_rows)
 
     # ---------------------------------------------------------------- 8
@@ -1574,28 +1690,8 @@ def run_lm(cfg: dict, device: str):
 
     # where the time goes: device time by kernel of one prefill forward
     if on_card:
-        from torch.autograd import DeviceType
-
-        def profile(fn, wall_ms):
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                fn()
-                torch.cuda.synchronize()
-            kern = [ev for ev in prof.key_averages()
-                    if ev.device_type == DeviceType.CUDA]
-            kern.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
-            busy = sum(ev.self_device_time_total for ev in kern) / 1e3
-            flash = sum(ev.self_device_time_total for ev in kern
-                        if "flash_fwd_kernel" in ev.key) / 1e3
-            return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                        device_idle_share=max(0.0, 1.0 - busy / wall_ms),
-                        flash_ms=flash, flash_share_of_busy=flash / busy if busy else 0.0,
-                        kernels=[dict(name=ev.key[:72], ms=ev.self_device_time_total / 1e3,
-                                      calls=ev.count) for ev in kern[:8]])
-
-        prefill_prof = profile(lambda: prefill(params, {"tokens": tokens}),
-                               float(np.median(again)) * 1e3)
+        prefill_prof = profile_device(lambda: prefill(params, {"tokens": tokens}),
+                                      float(np.median(again)) * 1e3)
 
     args = serve.parser().parse_args(cfg["serve_argv"] + ["--device", device])
     store, store_s = wall(lambda: serve._build_store(args, mcfg, device))
@@ -1625,18 +1721,8 @@ def run_lm(cfg: dict, device: str):
 
     # and of one kNN-LM decode step
     if on_card:
-        cache = M.init_cache(mcfg, args.batch, 8, device=device)
-        tok = torch.from_numpy(toks[:, 0]).to(dev)
-
-        def decode_knn():
-            logits, _ = M.decode_step(params, mcfg, tok, cache, 0)
-            h = params.embed[tok.long()].float()
-            return mix_logits(logits, store.knn_logits(h, V), args.lam).argmax(-1)
-
-        _, dec_s = wall(decode_knn)
         emit("profile_lm", prefill=prefill_prof,
-             decode_step_knn=profile(decode_knn, dec_s * 1e3))
-        del cache
+             decode_step_knn=profile_decode_knn(params, mcfg, store, toks[:, 0], args.lam))
     del store, tokens
     free()
 
@@ -1719,7 +1805,7 @@ def run_lm(cfg: dict, device: str):
     emit("knnlm_datastore", hidden_state_tap_seconds=tap_s, build_seconds=build_s,
          tree=tree_info, retrieval=before, evicted=evicted, evict_seconds=evict_s,
          evict_before_cut=(f"{n_eb} ids, not the batched paths' {n_ev}: the one-Delete-"
-                           "at-a-time eviction is cut to keep the run under ~450 s"
+                           "at-a-time eviction is cut to keep the run under ~560 s"
                            if n_eb < n_ev else None),
          alive_nodes_before_after_evict=[nodes_before, nodes_after],
          validate=True, validate_seconds=val_s, retrieval_after_evict=after)
@@ -1797,8 +1883,13 @@ def run_lm(cfg: dict, device: str):
 
     # every frontier launch of this path is wide (checked above on the card):
     # the unfiltered ones score the root level, the filtered ones the rest
-    wide_u = wide_rows[f"{cfg['wide_dims'][0]}/l2/plain"]
-    wide_p = wide_rows[f"{cfg['wide_dims'][0]}/l2/prune"]
+    # the rows' ms and bound are taken at the first served width; the other
+    # served widths' under ``by_dim``
+    d0 = cfg["wide_timed"][0]
+    wide_u, wide_p = (wide_rows[f"{d0}/l2/{m}"] for m in ("plain", "prune"))
+    by_dim = lambda m: {str(d): {k: wide_rows[f"{d}/l2/{m}"][k]
+                                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                        for d in cfg["wide_timed"][1:]}
     ret0 = before[f"b{cfg['ret_bs'][0]}"]
     step_u = (serve_counts["frontier"] - serve_counts["frontier_pruned"]) / args.steps
     step_p = serve_counts["frontier_pruned"] / args.steps
@@ -1812,7 +1903,8 @@ def run_lm(cfg: dict, device: str):
              launches_per_pass={"decode_step_knn": step_u, "datastore_retrieval":
                                 ret0["frontier_launches"] - ret0["frontier_pruned_launches"]},
              max_abs_err=0.0, ms=wide_u["ms"], plain_ms=wide_u["plain_ms"],
-             bound_ms=wide_u["bound_ms"], bound_by=wide_u["bound_by"], library_ms=None),
+             bound_ms=wide_u["bound_ms"], bound_by=wide_u["bound_by"], library_ms=None,
+             dim=d0, by_dim=by_dim("plain")),
         dict(name="frontier_scores[wide,parent_prune]", route="cuda",
              source="src/repro_torch/kernels/csrc/frontier.cu",
              replaces="src/repro/kernels/frontier.py:121",
@@ -1820,7 +1912,8 @@ def run_lm(cfg: dict, device: str):
              launches_per_pass={"decode_step_knn": step_p,
                                 "datastore_retrieval": ret0["frontier_pruned_launches"]},
              max_abs_err=0.0, ms=wide_p["ms"], plain_ms=wide_p["plain_ms"],
-             bound_ms=wide_p["bound_ms"], bound_by=wide_p["bound_by"], library_ms=None),
+             bound_ms=wide_p["bound_ms"], bound_by=wide_p["bound_by"], library_ms=None,
+             dim=d0, by_dim=by_dim("prune")),
         dict(name="pairwise_distance_prune", route="cuda",
              source="src/repro_torch/kernels/csrc/distance.cu",
              replaces="src/repro/kernels/distance.py:62",
@@ -2864,6 +2957,282 @@ def _close_serve(ctx: dict) -> None:
         ctx["s2"].pop("forest", None)
 
 
+def routing_agreement(r1: list, r2: list, shape) -> tuple:
+    """Two runs' MoE routing (``_routing`` records, one per MoE layer): the
+    share of (layer, token, choice) routings whose expert differs, and the
+    tokens [*shape] whose choices and kept slots agreed in every layer."""
+    differ = total = 0
+    agree = None
+    for a, b in zip(r1, r2, strict=True):
+        d = a["gate_i"] != b["gate_i"]
+        differ += int(d.sum())
+        total += d.numel()
+        same = ~(d | (a["keep"] != b["keep"])).any(-1)
+        agree = same if agree is None else agree & same
+    return differ / total, agree.reshape(shape)
+
+
+def logits_against_plain(kernel_host, plain, agree) -> dict:
+    """The kernel run's logits (kept on the host: one [b, s, V] tensor on
+    the card at a time) against the plain run's, batch row by batch row,
+    over the tokens whose routing agreed ([b, s]): max |err|, max |plain
+    logit|, and whether the last position's argmax is the same in every
+    row whose last token agreed."""
+    err, top, argmax_eq, rows = 0.0, 0.0, True, 0
+    for i in range(plain.shape[0]):
+        k_i = kernel_host[i].to(plain.device)
+        top = max(top, float(plain[i].abs().max()))
+        ok = agree[i].to(plain.device)
+        if bool(ok.any()):
+            err = max(err, float((k_i - plain[i]).abs()[ok].max()))
+        if bool(ok[-1]):
+            rows += 1
+            argmax_eq &= bool(k_i[-1].argmax() == plain[i][-1].argmax())
+        del k_i
+    return dict(max_abs_logit_err=err, max_abs_logit=top, last_argmax_equal=argmax_eq,
+                last_argmax_rows=rows, tokens_compared=int(agree.sum()))
+
+
+def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
+              reps: int) -> dict:
+    """One block family at full width (``lm_moe``, ``lm_hybrid``), launch
+    counts zeroed just before and read just after: seeded random weights,
+    the exact parameter count, a prefill at b x s through
+    ``make_prefill_step`` (the flash kernel once per attention layer),
+    held against the same prefill through the plain attention on the
+    tokens whose routing agreed in every MoE layer (the share of routings
+    that differ reported and bounded), where its device time goes, for the
+    hybrid decode held against a dropless forward, then ``launch/serve``
+    with ``--knn`` on these weights.  Returns the path's counts by kernel
+    row and its launches per pass."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.frontier import frontier_scores_torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    sync, _, wall = timers(on_card)
+    free = (lambda: torch.cuda.empty_cache()) if on_card else (lambda: None)
+    base = smoke_config(fcfg["arch"]) if fcfg["smoke"] else get_config(fcfg["arch"])
+    mcfg = dataclasses.replace(base, **fcfg["overrides"])
+    n_attn = sum(k.startswith("attn") for k in mcfg.block_pattern) * mcfg.n_periods
+    n_moe = sum(k.endswith("_moe") for k in mcfg.block_pattern) * mcfg.n_periods
+    reduced = ([f"depth: {mcfg.n_layers} of {base.n_layers} layers (one period of "
+                f"{len(base.block_pattern)}): all {base.n_layers} hold over "
+                f"{base.param_count * 4 / 1e9:.0f} GB in f32, more than the card's 80 GB"]
+               if mcfg.n_layers < base.n_layers else [])
+
+    zero_counts()
+    resident_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    params, init_s = wall(lambda: M.init_params(mcfg, 0, device=device))
+    n_params = M.param_count(params)
+    check(n_params == fcfg["params"], f"{phase}: {n_params} parameters, not {fcfg['params']}")
+    weights_gb = None
+    if on_card:
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    B, S, V = fcfg["prefill_b"], fcfg["prefill_s"], mcfg.padded_vocab
+    tokens = torch.from_numpy(synth_batch(DataConfig(
+        vocab_size=mcfg.vocab_size, seq_len=S, global_batch=B), 0,
+        with_labels=False)["tokens"]).to(dev)
+    batch = {"tokens": tokens}
+    # the first prefill through ``forward`` (what ``make_prefill_step``
+    # wraps), for its aux; the timed ones through ``make_prefill_step``
+    rk = []
+    c0 = stream_counts()["flash"]
+    (logits, aux), prefill_s = wall(lambda: M.forward(params, mcfg, batch, _routing=rk))
+    per_forward = stream_counts()["flash"] - c0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    if on_card:
+        check(per_forward == n_attn,
+              f"{phase}: {per_forward} flash launches in one forward, not {n_attn}")
+    check(len(rk) == n_moe, f"{phase}: {len(rk)} routing records, not {n_moe}")
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (B, S, V),
+          f"{phase}: prefill logits: shape or non-finite values")
+    aux = {k: float(v) for k, v in aux.items()}
+    kernel_host = logits.cpu()
+    del logits
+    prefill = make_prefill_step(mcfg)
+    again = [wall(lambda: prefill(params, batch))[1] for _ in range(reps)]
+
+    # the same prefill through the plain attention: the routing may flip at
+    # near ties, so the logits are held on the tokens whose routing agreed
+    rp = []
+    with uncounted():
+        plain, plain_s = wall(lambda: make_prefill_step(
+            mcfg, _attention=flash_attention_torch, _routing=rp)(params, batch))
+    flip_share, agree = routing_agreement(rk, rp, (B, S))
+    check(flip_share <= max_flip_share,
+          f"{phase}: {flip_share:.2e} of the routings differ from the plain run's")
+    cmp = logits_against_plain(kernel_host, plain, agree)
+    check(cmp["tokens_compared"] > 0, f"{phase}: no token's routing agreed")
+    check(cmp["max_abs_logit_err"] <= 1e-3 * cmp["max_abs_logit"],
+          f"{phase}: prefill logits kernel vs plain {cmp['max_abs_logit_err']} > 1e-3 x "
+          f"{cmp['max_abs_logit']}")
+    check(cmp["last_argmax_equal"], f"{phase}: last-position argmax differs from the plain path")
+    del plain, kernel_host, rk, rp
+    free()
+
+    # where the prefill's time goes, by kernel and by layer kind
+    with uncounted():
+        where = profile_device(lambda: prefill(params, batch),
+                               float(np.median(again)) * 1e3, on_card)
+
+    out = dict(arch=mcfg.name, n_layers=mcfg.n_layers, d_model=mcfg.d_model,
+               pattern=list(mcfg.block_pattern), experts=[mcfg.n_experts,
+                                                          mcfg.experts_per_token,
+                                                          mcfg.n_shared_experts],
+               heads=[mcfg.n_heads, mcfg.n_kv_heads], vocab=mcfg.vocab_size,
+               dtype=mcfg.param_dtype, params=n_params, cfg_param_count=mcfg.param_count,
+               reduced=reduced, resident_before_gb=resident_gb, init_seconds=init_s,
+               weights_gb=weights_gb,
+               prefill=dict(b=B, s=S, ms=[prefill_s * 1e3] + [t * 1e3 for t in again],
+                            plain_attention_ms=plain_s * 1e3, peak_gb=peak_gb,
+                            flash_launches_per_forward=per_forward, moe_layers=n_moe,
+                            aux=aux, routing_differs_share=flip_share, **cmp,
+                            profile=where))
+
+    if fcfg.get("decode_len"):
+        # decode against a forward made dropless like it (capacity factor
+        # E / k): a check, outside the counts
+        dcfg = dataclasses.replace(mcfg, capacity_factor=mcfg.n_experts / mcfg.experts_per_token)
+        Bd, Ld = fcfg["decode_b"], fcfg["decode_len"]
+        dtoks = tokens[:Bd, :Ld]
+        with uncounted():
+            rf = []
+            full, faux = M.forward(params, dcfg, {"tokens": dtoks}, _routing=rf)
+            check(float(faux["drop_frac"]) == 0.0, f"{phase}: the dropless forward dropped")
+            cache = M.init_cache(dcfg, Bd, Ld, device=device)
+            rd = [[] for _ in rf]
+            sync()
+            t0 = time.perf_counter()
+            steps = []
+            for pos in range(Ld):
+                rs = []
+                lg, cache = M.decode_step(params, dcfg, dtoks[:, pos], cache, pos, _routing=rs)
+                for acc, r in zip(rd, rs, strict=True):
+                    acc.append(r)
+                steps.append(lg)
+            sync()
+            dec_s = time.perf_counter() - t0
+        # the decode's records stacked to the forward's [b * s, k] layout
+        stacked = [dict(gate_i=torch.stack([r["gate_i"] for r in acc], 1).reshape(Bd * Ld, -1),
+                        keep=torch.stack([r["keep"] for r in acc], 1).reshape(Bd * Ld, -1))
+                   for acc in rd]
+        d_flip, d_agree = routing_agreement(rf, stacked, (Bd, Ld))
+        dec = torch.stack(steps, 1)
+        top = float(full.abs().max())
+        check(bool(d_agree.any()), f"{phase}: no decoded token's routing agreed")
+        derr = float((dec - full).abs().amax(-1)[d_agree].max())
+        check(d_flip <= max_flip_share, f"{phase}: decode routing differs in {d_flip:.2e}")
+        check(derr <= 1e-3 * top, f"{phase}: decode vs dropless forward {derr} > 1e-3 x {top}")
+        out["decode_vs_forward"] = dict(b=Bd, tokens=Ld, capacity_factor=dcfg.capacity_factor,
+                                        max_abs_logit_err=derr, max_abs_logit=top,
+                                        routing_differs_share=d_flip,
+                                        tokens_compared=int(d_agree.sum()),
+                                        ms_per_step=dec_s * 1e3 / Ld)
+        del full, dec, steps, cache, rf, rd, stacked
+        free()
+
+    args = serve.parser().parse_args(fcfg["serve_argv"] + ["--device", device])
+    store, store_s = wall(lambda: serve._build_store(args, mcfg, device))
+    c0 = stream_counts()
+    toks, timing = serve.serve_loop(args, mcfg, params, store)
+    sc = {k: v - c0[k] for k, v in stream_counts().items()}
+    check(toks.shape == (args.batch, args.steps + 1)
+          and bool(((toks >= 0) & (toks < V)).all()), f"{phase}: serve: bad tokens")
+    # the served store's retrieval (keys d_model wide: 4096 for jamba) at
+    # the served batch, against the plain-scorer descent, bitwise: a check,
+    # outside the counts
+    q = params.embed[torch.as_tensor(toks[:, -1]).to(dev).long()].float()
+    with uncounted():
+        c1 = stream_counts()
+        res = store.retrieve(q)
+        ret_launches = {k: v - c1[k] for k, v in stream_counts().items()}
+        ref = store.retrieve(q, _scorer=frontier_scores_torch)
+    for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
+        check(torch.equal(getattr(res, f), getattr(ref, f)),
+              f"{phase}: serve store b={args.batch}: kernel and plain descents differ in {f}")
+    if on_card:
+        check(ret_launches["frontier_wide"] > 0
+              and ret_launches["frontier_wide"] == ret_launches["frontier"]
+              + ret_launches["frontier_pruned"],
+              f"{phase}: the retrieval check did not run the wide kernel alone")
+    out["serve"] = dict(argv=fcfg["serve_argv"], batch=args.batch, prompt_len=args.prompt_len,
+                        steps=args.steps, store_keys=len(store.values), key_width=mcfg.d_model,
+                        store_build_seconds=store_s,
+                        prompt_feed_ms_per_token=timing["prefill_s"] * 1e3 / args.prompt_len,
+                        ms_per_decode_step=timing["ms_per_step"],
+                        wide_launches_per_step=sc["frontier_wide"] / args.steps,
+                        retrieval_bitwise_vs_plain=dict(b=args.batch, launches=ret_launches),
+                        launches=sc, sample=toks[0][:12].tolist())
+    if on_card:
+        with uncounted():
+            out["serve"]["profile_decode_step_knn"] = profile_decode_knn(
+                params, mcfg, store, toks[:, 0], args.lam)
+    del params, store, tokens
+    free()
+
+    c = stream_counts()
+    counts = dict(frontier=0, frontier_pruned=0, frontier_wide=c["frontier"],
+                  frontier_wide_pruned=c["frontier_pruned"], distance=c["distance"],
+                  flash=c["flash"])
+    out["launches"] = counts
+    emit(phase, **out)
+    if on_card:
+        check(c["frontier_wide"] == c["frontier"] + c["frontier_pruned"],
+              f"{phase}: a narrow frontier launch on an LM path")
+        for name in ("flash", "frontier_wide", "frontier_wide_pruned"):
+            check(counts[name] > 0, f"kernel {name} never launched on the {phase} path")
+    return dict(counts=counts, per_pass=dict(
+        prefill_forward=per_forward,
+        decode_step_knn=sc["frontier"] / args.steps,
+        decode_step_knn_pruned=sc["frontier_pruned"] / args.steps))
+
+
+def run_lm_families(cfg: dict, device: str) -> dict:
+    """The MoE and Mamba block families, each phase's launches apart:
+    ``lm_moe`` (qwen2-moe-a2.7b) and ``lm_hybrid`` (jamba-v0.1-52b, one
+    period).  Returns {phase: its counts and launches per pass}."""
+    out = {}
+    for phase, key in (("lm_moe", "moe"), ("lm_hybrid", "hybrid")):
+        t0 = time.perf_counter()
+        out[phase] = lm_family(phase, cfg[key], device, cfg["max_flip_share"],
+                               cfg["timing_reps"])
+        out[phase]["seconds"] = time.perf_counter() - t0
+    emit("lm_families_launches", **{k: dict(v["counts"], seconds=v["seconds"])
+                                     for k, v in out.items()})
+    return out
+
+
+def with_families(rows: list, fam: dict) -> list:
+    """The ``kernels`` line's rows with each family phase's count under
+    ``launches_by_path[phase]`` (``with_path``) and, on the flash and wide
+    rows, its launches per pass."""
+    per_row = {"flash_attention_fwd": ("prefill_forward", "prefill_forward"),
+               "frontier_scores[wide]": ("decode_step_knn", "decode_step_knn"),
+               "frontier_scores[wide,parent_prune]": ("decode_step_knn",
+                                                      "decode_step_knn_pruned")}
+    for phase, got in fam.items():
+        rows = with_path(rows, got["counts"], phase)
+        for row in rows:
+            if row["name"] in per_row:
+                name, key = per_row[row["name"]]
+                row["launches_per_pass"] = {**row["launches_per_pass"],
+                                            f"{phase}:{name}": got["per_pass"][key]}
+    return rows
+
+
 def with_path(rows: list, counts: dict, path: str) -> list:
     """Every row of the ``kernels`` line with ``path``'s count (the stream
     path's, the serving path's) under ``launches_by_path[path]`` (the LM
@@ -2915,9 +3284,14 @@ def main() -> int:
     stream = run_stream(ctx, STREAM_FULL, "cuda")
     torch.cuda.empty_cache()
     serve = run_serve(ctx, SERVE_FULL, "cuda")
+    ctx.clear()                # qwen2.5-3b's 12 GB and the datastores go
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam = run_lm_families(LM_FAMILIES_FULL, "cuda")
     narrow, narrow_pruned, scan = with_forest(index_rows, forest)
-    kernels = with_path(with_path([narrow, narrow_pruned, wide, wide_pruned, scan, prune,
-                                   flash], stream, "stream"), serve, "serve")
+    kernels = with_families(with_path(with_path(
+        [narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash], stream, "stream"),
+        serve, "serve"), fam)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

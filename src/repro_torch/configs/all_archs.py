@@ -2,8 +2,8 @@
 assignment table (sources in brackets), plus reduced smoke variants.
 
 The port's copy of ``repro/configs/all_archs.py``.  The port runs the
-dense "attn" block family (qwen2.5-3b is the serving default); the other
-families' blocks are still to port.
+dense, MoE and Mamba block families (qwen2.5-3b is the serving default);
+xlstm-1.3b and whisper-tiny are still to port.
 """
 from __future__ import annotations
 

@@ -3,6 +3,7 @@ optional kNN-LM mixing from an SM-tree datastore.  Port of the
 single-device path of ``repro/launch/serve.py``.
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --knn     # the card
+    python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --knn  # MoE, 57 GB f32
     python -m repro_torch.launch.serve --smoke --knn --device cpu  # the CPU
     python -m repro_torch.launch.serve --knn --knn-mutate [--knn-shards 4] --obs
     python -m repro_torch.launch.serve --knn --knn-mutate --frontend --replicas 2 --obs

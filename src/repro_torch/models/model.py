@@ -2,9 +2,10 @@
 ``repro/models/model.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
-Encoder-decoder configs (whisper) and the block families other than the
-dense ``"attn"`` block raise ``NotImplementedError`` (ROADMAP Queue 1
-item 12).
+The dense (``attn``), MoE (``attn_moe``) and Mamba (``mamba``,
+``mamba_moe``) block families run; the xLSTM blocks (ROADMAP Queue 1 item
+12.3) and encoder-decoder configs (whisper, item 12.4) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.smtree import resolve_device
 from repro_torch.models import transformer
 
-_ENCDEC = "encoder-decoder models (ROADMAP Queue 1 item 12) are not ported yet"
+_ENCDEC = "encoder-decoder models (ROADMAP Queue 1 item 12.4) are not ported yet"
 
 
 def _check(cfg: ArchConfig) -> None:
@@ -31,10 +32,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> transformer.L
     return transformer.init_lm(cfg, gen, dev)
 
 
-def forward(params, cfg: ArchConfig, batch: dict, *, _attention=None):
+def forward(params, cfg: ArchConfig, batch: dict, *, _attention=None, _routing=None):
     """Full-sequence forward -> (logits, aux)."""
     _check(cfg)
-    return transformer.lm_forward(params, cfg, batch, _attention=_attention)
+    return transformer.lm_forward(params, cfg, batch, _attention=_attention,
+                                  _routing=_routing)
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, dtype=None, *,
@@ -44,10 +46,12 @@ def init_cache(cfg: ArchConfig, batch: int, length: int, dtype=None, *,
                                   device=resolve_device(device))
 
 
-def decode_step(params, cfg: ArchConfig, token, cache, pos_scalar: int):
+def decode_step(params, cfg: ArchConfig, token, cache, pos_scalar: int, *,
+                _routing=None):
     """One-token decode with cache -> (logits [b, V], new cache)."""
     _check(cfg)
-    return transformer.lm_decode_step(params, cfg, token, cache, int(pos_scalar))
+    return transformer.lm_decode_step(params, cfg, token, cache, int(pos_scalar),
+                                      _routing=_routing)
 
 
 def param_count(params) -> int:

@@ -24,13 +24,16 @@ def make_decode_step(cfg: ArchConfig):
     return decode_fn
 
 
-def make_prefill_step(cfg: ArchConfig, *, _attention=None):
+def make_prefill_step(cfg: ArchConfig, *, _attention=None, _routing=None):
     """prefill_fn(params, batch) -> logits [b, s, V]: the full-sequence
     forward (the flash kernel on the card).  ``_attention`` (private)
-    replaces the attention entry point, for comparisons on the card."""
+    replaces the attention entry point, for comparisons on the card;
+    ``_routing`` (private, a list) collects each MoE layer's routing and
+    aux values (models/moe.py)."""
 
     def prefill_fn(params, batch):
-        logits, _ = M.forward(params, cfg, batch, _attention=_attention)
+        logits, _ = M.forward(params, cfg, batch, _attention=_attention,
+                              _routing=_routing)
         return logits
 
     return prefill_fn

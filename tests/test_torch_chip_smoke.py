@@ -30,6 +30,7 @@ LM_TINY = dict(
     serve_argv=["--knn", "--batch", "2", "--prompt-len", "4", "--steps", "3"],
     ds_seqs=4, ds_len=32, ds_chunk=2, ds_evict=16, ds_evict_before=8, ret_bs=[2, 4],
     wide_b=2, wide_F=4, wide_cap=8, wide_N=16, wide_dims=[160, 129, 131],
+    wide_timed=[160, 131],
     flash_cases={"path_f32": [1, 4, 4, 40, 40, 16, True, "float32"],
                  "path_bf16": [1, 4, 4, 40, 40, 16, True, "bfloat16"],
                  "gqa_sq<sk": [1, 4, 2, 20, 40, 16, True, "float32"],
@@ -55,6 +56,13 @@ SERVE_TINY = dict(
     write_rows=8,
     torn_rows=16, forest_b=16,
     serve_argv=["--knn", "--knn-mutate", "--frontend", "--replicas", "2", "--obs"] + LM_ARGV)
+LM_FAMILIES_TINY = dict(       # params: filled in from the reference's exact count
+    moe=dict(arch="qwen2-moe-a2.7b", smoke=True, overrides={}, params=None, prefill_b=2,
+             prefill_s=16, serve_argv=["--arch", "qwen2-moe-a2.7b", "--knn"] + LM_ARGV),
+    hybrid=dict(arch="jamba-v0.1-52b", smoke=True, overrides={"n_layers": 8}, params=None,
+                prefill_b=2, prefill_s=16, decode_b=2, decode_len=8,
+                serve_argv=["--arch", "jamba-v0.1-52b", "--knn"] + LM_ARGV),
+    max_flip_share=1e-3, timing_reps=2)
 KEYS = {"name", "route", "source", "replaces", "launches", "launches_per_pass",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 
@@ -200,8 +208,12 @@ def test_lm_slice_rehearses_on_the_cpu(lm_and_stream):
     for r in rows:
         extra = {"f32_cuda_core_bound_ms"} if r["name"] == "flash_attention_fwd" else set()
         extra |= {"device_ms"} if r["name"] == "pairwise_distance_prune" else set()
+        extra |= {"dim", "by_dim"} if "[wide" in r["name"] else set()
         assert set(r) == KEYS | extra and r["route"] == "cuda"
         assert (ROOT / r["source"]).exists()
+    for r in rows[:2]:              # the first served width in the row, the others apart
+        assert r["dim"] == 160 and set(r["by_dim"]) == {"131"}
+        assert set(r["by_dim"]["131"]) == {"ms", "plain_ms", "bound_ms", "bound_by"}
 
 
 def test_stream_path_rehearses_on_the_cpu(lm_and_stream):
@@ -322,3 +334,71 @@ def test_serve_path_rehearses_on_the_cpu(lm_and_stream):
                                          "descent"} <= set(r4["fetch_metrics_families"])
     assert set(counts) == set(launches) - {"phase", "seconds"}
     assert set(launches["seconds"]) == {"R1", "R2", "R3", "R4"}
+
+
+def test_lm_families_rehearse_on_the_cpu():
+    """``run_lm_families``: qwen2-moe's smoke model and jamba's cut to one
+    period, with the exact parameter counts the reference gives them."""
+    import copy
+    import dataclasses
+
+    from repro.configs.all_archs import smoke_config
+    from repro.models.model import exact_param_count
+    cfg = copy.deepcopy(LM_FAMILIES_TINY)
+    for fam in ("moe", "hybrid"):
+        c = cfg[fam]
+        c["params"] = exact_param_count(dataclasses.replace(smoke_config(c["arch"]),
+                                                            **c["overrides"]))
+    phases, fam, moe, hyb, launches = _rehearse(
+        f"run_lm_families({cfg!r}, 'cpu')", keep=("lm_moe", "lm_hybrid",
+                                                  "lm_families_launches"))
+    assert phases == ["lm_moe", "lm_hybrid", "lm_families_launches"]
+    assert moe["params"] == cfg["moe"]["params"] and hyb["params"] == cfg["hybrid"]["params"]
+    assert moe["reduced"] == [] and "8 of 16 layers" in hyb["reduced"][0]
+    for ln, n_moe in ((moe, 2), (hyb, 4)):
+        pf = ln["prefill"]
+        assert pf["moe_layers"] == n_moe and len(pf["ms"]) == 1 + cfg["timing_reps"]
+        assert pf["routing_differs_share"] == 0.0 and pf["tokens_compared"] == 2 * 16
+        assert pf["last_argmax_equal"] and 0 < pf["aux"]["drop_frac"] < 1
+        blocks = pf["profile"]["blocks"]
+        assert blocks["moe"]["calls"] == n_moe and blocks["attn"]["calls"]
+        assert ln["serve"]["store_keys"] == 2048 and ln["serve"]["key_width"] == 64
+        assert ln["serve"]["retrieval_bitwise_vs_plain"]["b"] == 2
+        assert len(ln["serve"]["sample"]) == 4
+    assert hyb["prefill"]["profile"]["blocks"]["mamba"]["calls"] == 7   # 7 of 8 blocks
+    assert hyb["prefill"]["profile"]["blocks"]["attn"]["calls"] == 1
+    assert "mlp" in hyb["prefill"]["profile"]["blocks"]          # the dense FFNs
+    d = hyb["decode_vs_forward"]
+    assert d["tokens_compared"] == 2 * 8 and d["max_abs_logit_err"] < 1e-4
+    assert d["capacity_factor"] == 8 / 2
+    assert set(fam) == {"lm_moe", "lm_hybrid"}
+    for got in fam.values():
+        assert set(got["per_pass"]) == {"prefill_forward", "decode_step_knn",
+                                        "decode_step_knn_pruned"}
+        assert set(got["counts"]) == {"frontier", "frontier_pruned", "frontier_wide",
+                                      "frontier_wide_pruned", "distance", "flash"}
+    assert launches["lm_moe"]["seconds"] > 0
+
+
+def test_family_counts_join_the_rows():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = [dict(name=n, launches=c, launches_per_pass={"p": c}) for n, c in
+            (("frontier_scores[wide]", 46), ("frontier_scores[wide,parent_prune]", 258),
+             ("pairwise_distance_prune", 0), ("flash_attention_fwd", 468))]
+    counts = dict(frontier=0, frontier_pruned=0, frontier_wide=16, frontier_wide_pruned=80,
+                  distance=0, flash=72)
+    fam = {"lm_moe": dict(counts=counts, per_pass=dict(prefill_forward=24, decode_step_knn=1.0,
+                                                       decode_step_knn_pruned=5.0)),
+           "lm_hybrid": dict(counts=dict(counts, flash=3),
+                             per_pass=dict(prefill_forward=1, decode_step_knn=1.0,
+                                           decode_step_knn_pruned=6.0))}
+    w, wp, d, f = chip_smoke.with_families(rows, fam)
+    assert w["launches_by_path"] == {"lm": 46, "lm_moe": 16, "lm_hybrid": 16}
+    assert wp["launches_by_path"] == {"lm": 258, "lm_moe": 80, "lm_hybrid": 80}
+    assert f["launches_by_path"] == {"lm": 468, "lm_moe": 72, "lm_hybrid": 3}
+    assert d["launches_by_path"] == {"lm": 0, "lm_moe": 0, "lm_hybrid": 0}
+    assert f["launches_per_pass"] == {"p": 468, "lm_moe:prefill_forward": 24,
+                                      "lm_hybrid:prefill_forward": 1}
+    assert wp["launches_per_pass"]["lm_hybrid:decode_step_knn"] == 6.0
+    assert d["launches_per_pass"] == {"p": 0} and rows[3]["launches_per_pass"] == {"p": 468}

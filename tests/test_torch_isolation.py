@@ -159,6 +159,38 @@ def test_serving_plane_runs_with_jax_blocked():
     assert proc.stdout.split() == ["ok"]
 
 
+def test_model_families_run_with_jax_blocked():
+    """The MoE and Mamba modules (``models.moe``, ``models.ssm``) import
+    and run jamba's and qwen2-moe's smoke models, forward and decode, with
+    ``jax`` blocked, and load nothing of the JAX package."""
+    proc = _run("""
+        import sys
+        sys.modules["jax"] = None
+        import torch
+        from repro_torch.configs import smoke_config
+        from repro_torch.models import model as M, moe, ssm
+        for arch in ("qwen2-moe-a2.7b", "jamba-v0.1-52b"):
+            cfg = smoke_config(arch)
+            params = M.init_params(cfg, 0, device="cpu")
+            toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(0))
+            logits, aux = M.forward(params, cfg, {"tokens": toks})
+            cache = M.init_cache(cfg, 2, 4, device="cpu")
+            lg, cache = M.decode_step(params, cfg, toks[:, 0], cache, 0)
+            assert logits.shape[:2] == (2, 9) and lg.shape == logits[:, 0].shape
+            assert float(aux["drop_frac"]) >= 0 and bool(torch.isfinite(lg).all())
+        assert isinstance(params.blocks[0].mixer, ssm.Mamba)
+        assert isinstance(params.blocks[1].ffn, moe.MoE)
+        bad = sorted(m for m, v in sys.modules.items() if v is not None and
+                     (m == "jax" or m.startswith("jax.") or m == "repro"
+                      or m.startswith("repro.")))
+        assert not bad, bad
+        assert "repro_torch.kernels._build" not in sys.modules
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -188,9 +188,9 @@ def test_stream_store_matches_jax(shards, tmp_path):
         ts.evict(70)
 
 
-def _smoke_pair():
-    jcfg = jax_smoke_config("qwen2.5-3b")
-    cfg = smoke_config("qwen2.5-3b")
+def _smoke_pair(arch="qwen2.5-3b"):
+    jcfg = jax_smoke_config(arch)
+    cfg = smoke_config(arch)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
     return jcfg, jparams, cfg, params
@@ -205,6 +205,21 @@ def test_serve_loop_gives_the_jax_tokens(knn):
     store = serve._build_store(args, cfg, "cpu") if knn else None
     got, timing = serve.serve_loop(args, cfg, params, store)
     assert got.shape == (4, 9) and timing["ms_per_step"] > 0
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+def test_serve_loop_gives_the_jax_tokens_for_moe_and_mamba(arch):
+    """``--arch qwen2-moe-a2.7b --knn`` (the MoE block, keys of width
+    d_model) and jamba's period (Mamba, MoE and attention blocks; the
+    prompt fed through the Mamba decode cache): the JAX package's tokens."""
+    argv = ["--smoke", "--arch", arch, "--steps", "6", "--prompt-len", "8", "--knn"]
+    want = np.asarray(jserve.main(argv))
+    _, _, cfg, params = _smoke_pair(arch)
+    args = serve.parser().parse_args(argv + ["--device", "cpu"])
+    store = serve._build_store(args, cfg, "cpu")
+    assert store.engine.tree.vecs.shape[-1] == cfg.d_model
+    got, _ = serve.serve_loop(args, cfg, params, store)
     np.testing.assert_array_equal(got, want)
 
 
