@@ -92,8 +92,12 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
      2048 (the rows' ms and bound) and 4096 (jamba's; the rows' ``by_dim``);
   8. kernel_flash: the flash kernel against ``flash_attention_torch`` at
      the prefill shape [4, 16, 2048, 128] causal (f32 within 2e-4, bf16
-     within 1e-2) and at GQA g=8 with sq != sk, causal and not; times of
-     the kernel, the plain version and SDPA (the library call, sq == sk),
+     within 1e-2), at GQA g=8 with sq != sk, causal and not, and at
+     whisper-tiny's three shapes (phase L4's b=16, 6 heads of 64: the
+     encoder's [1500 x 1500] non-causal, the decoder's [448 x 448] causal,
+     the cross-attention's [448 x 1500] non-causal; the flash row's
+     ``by_shape``); times of the kernel, the plain version and SDPA (the
+     library call, where sq == sk or the mask is off),
      and the bound at the arithmetic the kernel uses (three TF32 tensor-core
      products per f32 product, one bf16 product in bf16), beside the f32
      CUDA-core bound (``f32_cuda_core_bound_ms``);
@@ -186,9 +190,10 @@ reference) are put back by ``uncounted()``:
       front-end's counters, the replicas' lag, the obs rows and
       ``fetch_metrics`` over the ship socket.
 
-The MoE and Mamba block families (``run_lm_families``), after the serving
-path has let qwen2.5-3b's weights and the datastores go, each phase
-counted apart under ``launches_by_path.lm_moe`` / ``lm_hybrid``:
+The block families (``run_lm_families``), after the serving path has let
+qwen2.5-3b's weights and the datastores go, each phase counted apart under
+``launches_by_path.lm_moe`` / ``lm_hybrid`` / ``lm_xlstm`` / ``lm_audio``,
+each phase's weights let go before the next one's are drawn:
 
   L1. lm_moe: qwen2-moe-a2.7b at full width and depth in f32 (exactly
       14,315,735,040 parameters, seeded random weights): a prefill at b=4,
@@ -210,14 +215,31 @@ counted apart under ``launches_by_path.lm_moe`` / ``lm_hybrid``:
       layer), decode over a 64-token prompt against a forward made
       dropless like it (capacity factor E / k), then ``launch/serve --arch
       jamba-v0.1-52b --knn`` (keys of width 4096) with the same retrieval
-      check.
+      check;
+  L3. lm_xlstm: xlstm-1.3b at full width and depth (48 layers, 42 mLSTM
+      and 6 sLSTM, exactly 3,609,147,728 parameters): the same prefill
+      checks (0 flash launches: no attention layer; the time by
+      ``block.mlstm`` / ``block.slstm`` range), decode over a 64-token
+      prompt at b=4 against the forward (chunk-parallel against
+      recurrent), then ``launch/serve --arch xlstm-1.3b --knn`` (keys of
+      width 2048) with the same retrieval check;
+  L4. lm_audio: whisper-tiny at full size (4 + 4 layers, exactly
+      36,620,160 parameters), seeded frames [16, 1500, 384] and decoder
+      tokens [16, 448]: a forward through ``make_prefill_step`` (12 flash
+      launches: 4 encoder, 4 decoder, 4 cross) held against the same
+      forward through the plain attention, ``encdec_prefill_cache`` (4
+      launches) and a cached decode of 64 tokens at b=16 against the
+      forward's logits, then ``launch/serve --arch whisper-tiny --knn``
+      (no encoder runs there, as in the reference; keys of width 384) with
+      the same retrieval check.
 
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
 library ms; ``launches_by_path`` gives every path's count apart: ``index``
-and ``forest`` for the narrow rows and the scan, ``lm``, ``lm_moe`` and
-``lm_hybrid`` for the LM rows, and ``stream`` and ``serve`` for all; the
+and ``forest`` for the narrow rows and the scan, ``lm``, ``lm_moe``,
+``lm_hybrid``, ``lm_xlstm`` and ``lm_audio`` for the LM rows, and
+``stream`` and ``serve`` for all; the
 distance scan at the index path's shape, with
 its device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -266,19 +288,34 @@ LM_FULL = dict(
         "path_bf16": (4, 16, 16, 2048, 2048, 128, True, "bfloat16"),
         "gqa8_sq<sk": (1, 16, 2, 512, 1024, 128, True, "float32"),
         "gqa8_noncausal_sq>sk": (2, 16, 2, 700, 300, 128, False, "float32"),
-        "gqa8_bf16": (1, 16, 2, 512, 1024, 128, True, "bfloat16")},
+        "gqa8_bf16": (1, 16, 2, 512, 1024, 128, True, "bfloat16"),
+        # whisper-tiny's three attentions (d_model 384, 6 heads of 64) at
+        # phase L4's batch: the encoder over 1,500 frames, the decoder's
+        # 448 positions, and the cross-attention onto the frames
+        "whisper_encoder": (16, 6, 6, 1500, 1500, 64, False, "float32"),
+        "whisper_decoder": (16, 6, 6, 448, 448, 64, True, "float32"),
+        "whisper_cross": (16, 6, 6, 448, 1500, 64, False, "float32")},
     prune_nq=1024, prune_ne=65_536, prune_d=20, timing_reps=5)
-# the MoE and Mamba block families (run_lm_families), f32, seeded random
-# weights: qwen2-moe-a2.7b at full width and depth, then jamba-v0.1-52b at
-# full width cut to one 8-layer period (all 32 layers are 206 GB in f32);
+# the block families (run_lm_families), f32, seeded random weights:
+# qwen2-moe-a2.7b at full width and depth, jamba-v0.1-52b at full width cut
+# to one 8-layer period (all 32 layers are 206 GB in f32), xlstm-1.3b at
+# full width and depth, whisper-tiny at full size with 1,500 frames (the
+# conv stub's output for a 30-s window) and 448 decoder positions;
 # ``params`` pins each model's exact parameter count (the reference's
-# ``exact_param_count``, held by tests/test_torch_models.py)
+# ``exact_param_count``, held by tests/test_torch_models.py,
+# test_torch_xlstm.py and test_torch_encdec.py)
 LM_FAMILIES_FULL = dict(
     moe=dict(arch="qwen2-moe-a2.7b", smoke=False, overrides={}, params=14_315_735_040,
              prefill_b=4, prefill_s=2048, serve_argv=["--arch", "qwen2-moe-a2.7b", "--knn"]),
     hybrid=dict(arch="jamba-v0.1-52b", smoke=False, overrides={"n_layers": 8},
                 params=13_295_235_072, prefill_b=4, prefill_s=2048, decode_b=4,
                 decode_len=64, serve_argv=["--arch", "jamba-v0.1-52b", "--knn"]),
+    xlstm=dict(arch="xlstm-1.3b", smoke=False, overrides={}, params=3_609_147_728,
+               prefill_b=4, prefill_s=2048, decode_b=4, decode_len=64,
+               serve_argv=["--arch", "xlstm-1.3b", "--knn"]),
+    audio=dict(arch="whisper-tiny", smoke=False, overrides={}, params=36_620_160,
+               prefill_b=16, frames=1500, prefill_s=448, decode_len=64,
+               serve_argv=["--arch", "whisper-tiny", "--knn"]),
     max_flip_share=1e-3, timing_reps=2)
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
@@ -434,14 +471,15 @@ def profile_device(fn, wall_ms: float, on_card: bool = True) -> dict:
     idle share of ``wall_ms``, the flash kernel's share, the top 8 kernels,
     and by layer kind (``blocks``: calls and summed device-side spans, first
     kernel's start to last kernel's end, of each ``block.<kind>`` range
-    that models/transformer.py opens around a block's mixer and FFN; a
-    span holds any idle gap inside it, and flash counts inside ``attn``).
-    The spans are kineto's device-side copies of the ranges: the host-side
-    ranges' ``device_time_total`` counts some kernels under more than one
-    op, so its sums can exceed the busy time.  Off the card only the
-    host-side ranges' calls (span None)."""
+    that the models open around a block's mixer and FFN; a span holds any
+    idle gap inside it, and flash counts inside ``attn``).  The spans are
+    kineto's device-side copies of the ranges: the host-side ranges'
+    ``device_time_total`` counts some kernels under more than one op, so
+    its sums can exceed the busy time.  Everything is read from kineto's
+    raw events, not from ``key_averages()``, whose tree of host events
+    took 137 s for the ~10^6 events of xlstm-1.3b's prefill.  Off the card
+    only the host-side ranges' calls (span None)."""
     import torch
-    from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -449,30 +487,30 @@ def profile_device(fn, wall_ms: float, on_card: bool = True) -> dict:
         fn()
         if on_card:
             torch.cuda.synchronize()
-    blocks = {}
-    for ev in prof.events():
-        if ev.name.startswith("block.") and (ev.device_type == DeviceType.CUDA) == on_card:
-            b = blocks.setdefault(ev.name.removeprefix("block."),
-                                  dict(span_ms=0.0 if on_card else None, calls=0))
-            b["calls"] += 1
-            if on_card:
-                b["span_ms"] += (ev.time_range.end - ev.time_range.start) / 1e3
+    blocks, kern = {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        name, dev = ev.name(), "cuda" if "CUDA" in str(ev.device_type()) else "cpu"
+        if name.startswith("block."):
+            if (dev == "cuda") == on_card:
+                b = blocks.setdefault(name.removeprefix("block."),
+                                      dict(span_ms=0.0 if on_card else None, calls=0))
+                b["calls"] += 1
+                if on_card:
+                    b["span_ms"] += ev.duration_ns() / 1e6
+        elif dev == "cuda" and not ev.is_user_annotation():
+            k = kern.setdefault(name, [0.0, 0])
+            k[0] += ev.duration_ns() / 1e6
+            k[1] += 1
     if not on_card:
         return dict(blocks=blocks)
-    # the ranges' device-side copies are not kernels
-    kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
-            and not getattr(ev, "is_user_annotation", False)
-            and not ev.key.startswith("block.")]
-    kern.sort(key=lambda ev: ev.self_device_time_total, reverse=True)
-    busy = sum(ev.self_device_time_total for ev in kern) / 1e3
-    flash = sum(ev.self_device_time_total for ev in kern
-                if "flash_fwd_kernel" in ev.key) / 1e3
+    top = sorted(kern.items(), key=lambda kv: kv[1][0], reverse=True)
+    busy = sum(ms for ms, _ in kern.values())
+    flash = sum(ms for name, (ms, _) in kern.items() if "flash_fwd_kernel" in name)
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 device_idle_share=max(0.0, 1.0 - busy / wall_ms),
                 flash_ms=flash, flash_share_of_busy=flash / busy if busy else 0.0,
                 blocks=blocks,
-                kernels=[dict(name=ev.key[:72], ms=ev.self_device_time_total / 1e3,
-                              calls=ev.count) for ev in kern[:8]])
+                kernels=[dict(name=name[:72], ms=ms, calls=n) for name, (ms, n) in top[:8]])
 
 
 def profile_decode_knn(params, mcfg, store, tokens, lam: float) -> dict:
@@ -1586,7 +1624,7 @@ def run_lm(cfg: dict, device: str):
               f"flash {name}: beyond {tol} (max abs err {err})")
         row = dict(shape=[fb, h, hk, sq, sk, d], causal=causal, dtype=dt,
                    max_abs_err=err, tol=tol)
-        if name.startswith("path"):
+        if name.startswith(("path", "whisper")):
             # visible (query, key) pairs, bottom-right causal
             qpos = np.arange(sq) + (sk - sq)
             pairs = int(np.clip(qpos + 1, 0, sk).sum()) if causal else sq * sk
@@ -1597,8 +1635,11 @@ def run_lm(cfg: dict, device: str):
                                   iters=10),
                        plain_ms=time_ms(lambda: flash_attention_torch(q, k, v, causal=causal),
                                         iters=3, warmup=1),
+                       # SDPA's causal mask is top-left: the same function
+                       # only where sq == sk or there is no mask
                        library_ms=(time_ms(lambda: Fnn.scaled_dot_product_attention(
-                           q, k, v, is_causal=causal), iters=10) if on_card else None),
+                           q, k, v, is_causal=causal), iters=10)
+                           if on_card and (sq == sk or not causal) else None),
                        bound_ms=bms, bound_by=by,
                        f32_cuda_core_bound_ms=bound(nbytes, nops)[0],
                        flops=nops, bytes=nbytes)
@@ -1606,7 +1647,8 @@ def run_lm(cfg: dict, device: str):
         del q, k, v, got, want, diff
         free()
     emit("kernel_flash", results=flash_rows,
-         library="torch.nn.functional.scaled_dot_product_attention (sq == sk only)")
+         library="torch.nn.functional.scaled_dot_product_attention (sq == sk or "
+                 "non-causal)")
 
     # ---------------------------------------------------------------- 9
     nq, ne, d = cfg["prune_nq"], cfg["prune_ne"], cfg["prune_d"]
@@ -1928,7 +1970,11 @@ def run_lm(cfg: dict, device: str):
              max_abs_err=fl["max_abs_err"], ms=fl["ms"],
              plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"],
              bound_by=fl["bound_by"], library_ms=fl["library_ms"],
-             f32_cuda_core_bound_ms=fl["f32_cuda_core_bound_ms"]),
+             f32_cuda_core_bound_ms=fl["f32_cuda_core_bound_ms"],
+             by_shape={name: {k: row[k] for k in ("shape", "causal", "max_abs_err", "ms",
+                                                  "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "f32_cuda_core_bound_ms")}
+                       for name, row in flash_rows.items() if name.startswith("whisper")}),
     ]
 
 
@@ -2960,7 +3006,11 @@ def _close_serve(ctx: dict) -> None:
 def routing_agreement(r1: list, r2: list, shape) -> tuple:
     """Two runs' MoE routing (``_routing`` records, one per MoE layer): the
     share of (layer, token, choice) routings whose expert differs, and the
-    tokens [*shape] whose choices and kept slots agreed in every layer."""
+    tokens [*shape] whose choices and kept slots agreed in every layer
+    (every token where the model has no MoE layer)."""
+    import torch
+    if not r1 and not r2:
+        return 0.0, torch.ones(shape, dtype=torch.bool)
     differ = total = 0
     agree = None
     for a, b in zip(r1, r2, strict=True):
@@ -2993,18 +3043,72 @@ def logits_against_plain(kernel_host, plain, agree) -> dict:
                 last_argmax_rows=rows, tokens_compared=int(agree.sum()))
 
 
+def serve_family(phase: str, fcfg: dict, mcfg, params, device: str) -> tuple:
+    """``launch/serve`` with ``fcfg["serve_argv"]`` on these weights (a
+    2048-key store of width d_model), then the served store's retrieval at
+    the served batch held bitwise against the plain-scorer descent (a
+    check, outside the counts).  Returns (its record, the loop's launch
+    counts, its decode steps)."""
+    import torch
+
+    from repro_torch.kernels.frontier import frontier_scores_torch
+    from repro_torch.launch import serve
+
+    on_card = device == "cuda"
+    _, _, wall = timers(on_card)
+    args = serve.parser().parse_args(fcfg["serve_argv"] + ["--device", device])
+    store, store_s = wall(lambda: serve._build_store(args, mcfg, device))
+    c0 = stream_counts()
+    toks, timing = serve.serve_loop(args, mcfg, params, store)
+    sc = {k: v - c0[k] for k, v in stream_counts().items()}
+    check(toks.shape == (args.batch, args.steps + 1)
+          and bool(((toks >= 0) & (toks < mcfg.padded_vocab)).all()),
+          f"{phase}: serve: bad tokens")
+    # the served store's retrieval (keys d_model wide: 4096 for jamba) at
+    # the served batch, against the plain-scorer descent, bitwise: a check,
+    # outside the counts
+    q = params.embed[torch.as_tensor(toks[:, -1]).to(params.embed.device).long()].float()
+    with uncounted():
+        c1 = stream_counts()
+        res = store.retrieve(q)
+        ret_launches = {k: v - c1[k] for k, v in stream_counts().items()}
+        ref = store.retrieve(q, _scorer=frontier_scores_torch)
+    for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
+        check(torch.equal(getattr(res, f), getattr(ref, f)),
+              f"{phase}: serve store b={args.batch}: kernel and plain descents differ in {f}")
+    if on_card:
+        check(ret_launches["frontier_wide"] > 0
+              and ret_launches["frontier_wide"] == ret_launches["frontier"]
+              + ret_launches["frontier_pruned"],
+              f"{phase}: the retrieval check did not run the wide kernel alone")
+    rec = dict(argv=fcfg["serve_argv"], batch=args.batch, prompt_len=args.prompt_len,
+               steps=args.steps, store_keys=len(store.values), key_width=mcfg.d_model,
+               store_build_seconds=store_s,
+               prompt_feed_ms_per_token=timing["prefill_s"] * 1e3 / args.prompt_len,
+               ms_per_decode_step=timing["ms_per_step"],
+               wide_launches_per_step=sc["frontier_wide"] / args.steps,
+               retrieval_bitwise_vs_plain=dict(b=args.batch, launches=ret_launches),
+               launches=sc, sample=toks[0][:12].tolist())
+    if on_card:
+        with uncounted():
+            rec["profile_decode_step_knn"] = profile_decode_knn(
+                params, mcfg, store, toks[:, 0], args.lam)
+    return rec, sc, args.steps
+
+
 def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
               reps: int) -> dict:
-    """One block family at full width (``lm_moe``, ``lm_hybrid``), launch
-    counts zeroed just before and read just after: seeded random weights,
-    the exact parameter count, a prefill at b x s through
-    ``make_prefill_step`` (the flash kernel once per attention layer),
-    held against the same prefill through the plain attention on the
-    tokens whose routing agreed in every MoE layer (the share of routings
-    that differ reported and bounded), where its device time goes, for the
-    hybrid decode held against a dropless forward, then ``launch/serve``
-    with ``--knn`` on these weights.  Returns the path's counts by kernel
-    row and its launches per pass."""
+    """One decoder block family at full width (``lm_moe``, ``lm_hybrid``,
+    ``lm_xlstm``), launch counts zeroed just before and read just after:
+    seeded random weights, the exact parameter count, a prefill at b x s
+    through ``make_prefill_step`` (the flash kernel once per attention
+    layer, none for xLSTM), held against the same prefill through the
+    plain attention on the tokens whose routing agreed in every MoE layer
+    (the share of routings that differ reported and bounded), where its
+    device time goes, with ``decode_len`` a decode held against a forward
+    made dropless like it, then ``launch/serve`` with ``--knn`` on these
+    weights.  Returns the path's counts by kernel row and its launches per
+    pass."""
     import dataclasses
 
     import numpy as np
@@ -3013,8 +3117,6 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.data.pipeline import DataConfig, synth_batch
     from repro_torch.kernels.flash_attention import flash_attention_torch
-    from repro_torch.kernels.frontier import frontier_scores_torch
-    from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.serve.serve_step import make_prefill_step
 
@@ -3085,8 +3187,9 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
 
     # where the prefill's time goes, by kernel and by layer kind
     with uncounted():
-        where = profile_device(lambda: prefill(params, batch),
-                               float(np.median(again)) * 1e3, on_card)
+        where, profile_s = wall(lambda: profile_device(lambda: prefill(params, batch),
+                                                       float(np.median(again)) * 1e3, on_card))
+    where["seconds"] = profile_s
 
     out = dict(arch=mcfg.name, n_layers=mcfg.n_layers, d_model=mcfg.d_model,
                pattern=list(mcfg.block_pattern), experts=[mcfg.n_experts,
@@ -3104,8 +3207,10 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
 
     if fcfg.get("decode_len"):
         # decode against a forward made dropless like it (capacity factor
-        # E / k): a check, outside the counts
-        dcfg = dataclasses.replace(mcfg, capacity_factor=mcfg.n_experts / mcfg.experts_per_token)
+        # E / k; without MoE layers the forward itself): a check, outside
+        # the counts
+        dcfg = (dataclasses.replace(mcfg, capacity_factor=mcfg.n_experts / mcfg.experts_per_token)
+                if mcfg.n_experts else mcfg)
         Bd, Ld = fcfg["decode_b"], fcfg["decode_len"]
         dtoks = tokens[:Bd, :Ld]
         with uncounted():
@@ -3133,10 +3238,11 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
         dec = torch.stack(steps, 1)
         top = float(full.abs().max())
         check(bool(d_agree.any()), f"{phase}: no decoded token's routing agreed")
-        derr = float((dec - full).abs().amax(-1)[d_agree].max())
+        derr = float((dec - full).abs().amax(-1)[d_agree.to(full.device)].max())
         check(d_flip <= max_flip_share, f"{phase}: decode routing differs in {d_flip:.2e}")
         check(derr <= 1e-3 * top, f"{phase}: decode vs dropless forward {derr} > 1e-3 x {top}")
-        out["decode_vs_forward"] = dict(b=Bd, tokens=Ld, capacity_factor=dcfg.capacity_factor,
+        out["decode_vs_forward"] = dict(b=Bd, tokens=Ld, capacity_factor=(
+                                            dcfg.capacity_factor if mcfg.n_experts else None),
                                         max_abs_logit_err=derr, max_abs_logit=top,
                                         routing_differs_share=d_flip,
                                         tokens_compared=int(d_agree.sum()),
@@ -3144,43 +3250,138 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
         del full, dec, steps, cache, rf, rd, stacked
         free()
 
-    args = serve.parser().parse_args(fcfg["serve_argv"] + ["--device", device])
-    store, store_s = wall(lambda: serve._build_store(args, mcfg, device))
-    c0 = stream_counts()
-    toks, timing = serve.serve_loop(args, mcfg, params, store)
-    sc = {k: v - c0[k] for k, v in stream_counts().items()}
-    check(toks.shape == (args.batch, args.steps + 1)
-          and bool(((toks >= 0) & (toks < V)).all()), f"{phase}: serve: bad tokens")
-    # the served store's retrieval (keys d_model wide: 4096 for jamba) at
-    # the served batch, against the plain-scorer descent, bitwise: a check,
-    # outside the counts
-    q = params.embed[torch.as_tensor(toks[:, -1]).to(dev).long()].float()
+    out["serve"], sc, steps = serve_family(phase, fcfg, mcfg, params, device)
+    del params, tokens
+    free()
+
+    c = stream_counts()
+    counts = dict(frontier=0, frontier_pruned=0, frontier_wide=c["frontier"],
+                  frontier_wide_pruned=c["frontier_pruned"], distance=c["distance"],
+                  flash=c["flash"])
+    out["launches"] = counts
+    emit(phase, **out)
+    if on_card:
+        check(c["frontier_wide"] == c["frontier"] + c["frontier_pruned"],
+              f"{phase}: a narrow frontier launch on an LM path")
+        # xLSTM has no attention layer: its path launches no flash kernel
+        check(n_attn or counts["flash"] == 0, f"{phase}: a flash launch with no attention layer")
+        for name in (("flash",) if n_attn else ()) + ("frontier_wide", "frontier_wide_pruned"):
+            check(counts[name] > 0, f"kernel {name} never launched on the {phase} path")
+    return dict(counts=counts, per_pass=dict(
+        prefill_forward=per_forward,
+        decode_step_knn=sc["frontier"] / steps,
+        decode_step_knn_pruned=sc["frontier_pruned"] / steps))
+
+
+def lm_audio(phase: str, fcfg: dict, device: str, reps: int) -> dict:
+    """whisper-tiny at full size (``lm_audio``), launch counts zeroed just
+    before and read just after: seeded random weights, the exact parameter
+    count, seeded frames [b, 1500, 384] (the conv stub's output for a 30-s
+    window) and decoder tokens [b, 448]; a forward through
+    ``make_prefill_step`` (the flash kernel once per encoder layer, and
+    twice per decoder layer: causal self-attention, cross-attention onto
+    the frames) held against the same forward through the plain attention;
+    where its device time goes; ``encdec_prefill_cache`` (the encoder's
+    launches) and a cached decode of the first ``decode_len`` tokens held
+    against the forward's logits; then ``launch/serve --arch whisper-tiny
+    --knn``.  Returns the path's counts by kernel row and its launches per
+    pass."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.models import encdec
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    sync, _, wall = timers(on_card)
+    free = (lambda: torch.cuda.empty_cache()) if on_card else (lambda: None)
+    mcfg = smoke_config(fcfg["arch"]) if fcfg["smoke"] else get_config(fcfg["arch"])
+    n_enc, n_dec = mcfg.encoder_layers, mcfg.n_layers
+
+    zero_counts()
+    params, init_s = wall(lambda: M.init_params(mcfg, 0, device=device))
+    n_params = M.param_count(params)
+    check(n_params == fcfg["params"], f"{phase}: {n_params} parameters, not {fcfg['params']}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    B, S_enc, S, V = fcfg["prefill_b"], fcfg["frames"], fcfg["prefill_s"], mcfg.padded_vocab
+    gen = torch.Generator(device=dev).manual_seed(11)
+    frames = torch.randn((B, S_enc, mcfg.d_model), generator=gen, device=dev)
+    tokens = torch.from_numpy(synth_batch(DataConfig(
+        vocab_size=mcfg.vocab_size, seq_len=S, global_batch=B), 0,
+        with_labels=False)["tokens"]).to(dev)
+    batch = {"frames": frames, "tokens": tokens}
+
+    prefill = make_prefill_step(mcfg)
+    c0 = stream_counts()["flash"]
+    logits, prefill_s = wall(lambda: prefill(params, batch))
+    per_forward = stream_counts()["flash"] - c0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    if on_card:
+        check(per_forward == n_enc + 2 * n_dec,
+              f"{phase}: {per_forward} flash launches in one forward, not {n_enc + 2 * n_dec}")
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (B, S, V),
+          f"{phase}: forward logits: shape or non-finite values")
+    again = [wall(lambda: prefill(params, batch))[1] for _ in range(reps)]
     with uncounted():
-        c1 = stream_counts()
-        res = store.retrieve(q)
-        ret_launches = {k: v - c1[k] for k, v in stream_counts().items()}
-        ref = store.retrieve(q, _scorer=frontier_scores_torch)
-    for f in ("dists", "ids", "page_hits", "dist_evals", "overflow"):
-        check(torch.equal(getattr(res, f), getattr(ref, f)),
-              f"{phase}: serve store b={args.batch}: kernel and plain descents differ in {f}")
+        plain, plain_s = wall(lambda: make_prefill_step(
+            mcfg, _attention=flash_attention_torch)(params, batch))
+    err = float((logits - plain).abs().max())
+    top = float(plain.abs().max())
+    check(err <= 1e-3 * top, f"{phase}: forward logits kernel vs plain {err} > 1e-3 x {top}")
+    argmax_eq = torch.equal(logits[:, -1].argmax(-1), plain[:, -1].argmax(-1))
+    check(argmax_eq, f"{phase}: last-position argmax differs from the plain path")
+    del plain
+    free()
+    with uncounted():
+        where, profile_s = wall(lambda: profile_device(lambda: prefill(params, batch),
+                                                       float(np.median(again)) * 1e3, on_card))
+    where["seconds"] = profile_s
+
+    # the encoder once, filling every decoder layer's cross K/V, then the
+    # cached decode of the first decode_len tokens against the forward
+    Ld = fcfg["decode_len"]
+    c0 = stream_counts()["flash"]
+    cache, cache_s = wall(lambda: encdec.encdec_prefill_cache(
+        params, mcfg, frames, M.init_cache(mcfg, B, S_enc, device=device)))
+    per_cache = stream_counts()["flash"] - c0
     if on_card:
-        check(ret_launches["frontier_wide"] > 0
-              and ret_launches["frontier_wide"] == ret_launches["frontier"]
-              + ret_launches["frontier_pruned"],
-              f"{phase}: the retrieval check did not run the wide kernel alone")
-    out["serve"] = dict(argv=fcfg["serve_argv"], batch=args.batch, prompt_len=args.prompt_len,
-                        steps=args.steps, store_keys=len(store.values), key_width=mcfg.d_model,
-                        store_build_seconds=store_s,
-                        prompt_feed_ms_per_token=timing["prefill_s"] * 1e3 / args.prompt_len,
-                        ms_per_decode_step=timing["ms_per_step"],
-                        wide_launches_per_step=sc["frontier_wide"] / args.steps,
-                        retrieval_bitwise_vs_plain=dict(b=args.batch, launches=ret_launches),
-                        launches=sc, sample=toks[0][:12].tolist())
-    if on_card:
-        with uncounted():
-            out["serve"]["profile_decode_step_knn"] = profile_decode_knn(
-                params, mcfg, store, toks[:, 0], args.lam)
-    del params, store, tokens
+        check(per_cache == n_enc,
+              f"{phase}: {per_cache} flash launches in encdec_prefill_cache, not {n_enc}")
+    sync()
+    t0 = time.perf_counter()
+    steps = []
+    for pos in range(Ld):
+        lg, cache = M.decode_step(params, mcfg, tokens[:, pos], cache, pos)
+        steps.append(lg)
+    sync()
+    dec_s = time.perf_counter() - t0
+    full = logits[:, :Ld]
+    dtop = float(full.abs().max())
+    derr = float((torch.stack(steps, 1) - full).abs().max())
+    check(derr <= 1e-3 * dtop, f"{phase}: cached decode vs forward {derr} > 1e-3 x {dtop}")
+    del logits, full, steps, cache
+    free()
+
+    out = dict(arch=mcfg.name, enc_layers=n_enc, dec_layers=n_dec, d_model=mcfg.d_model,
+               heads=[mcfg.n_heads, mcfg.d_head], vocab=mcfg.vocab_size,
+               dtype=mcfg.param_dtype, params=n_params, cfg_param_count=mcfg.param_count,
+               reduced=[], init_seconds=init_s,
+               forward=dict(b=B, frames=S_enc, tokens=S,
+                            ms=[prefill_s * 1e3] + [t * 1e3 for t in again],
+                            plain_attention_ms=plain_s * 1e3, peak_gb=peak_gb,
+                            flash_launches_per_forward=per_forward, max_abs_logit_err=err,
+                            max_abs_logit=top, last_argmax_equal=argmax_eq, profile=where),
+               prefill_cache=dict(ms=cache_s * 1e3, flash_launches=per_cache),
+               decode_vs_forward=dict(b=B, tokens=Ld, max_abs_logit_err=derr,
+                                      max_abs_logit=dtop, ms_per_step=dec_s * 1e3 / Ld))
+    out["serve"], sc, n_steps = serve_family(phase, fcfg, mcfg, params, device)
+    del params, tokens, frames, batch
     free()
 
     c = stream_counts()
@@ -3195,21 +3396,28 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
         for name in ("flash", "frontier_wide", "frontier_wide_pruned"):
             check(counts[name] > 0, f"kernel {name} never launched on the {phase} path")
     return dict(counts=counts, per_pass=dict(
-        prefill_forward=per_forward,
-        decode_step_knn=sc["frontier"] / args.steps,
-        decode_step_knn_pruned=sc["frontier_pruned"] / args.steps))
+        prefill_forward=per_forward, prefill_cache=per_cache,
+        decode_step_knn=sc["frontier"] / n_steps,
+        decode_step_knn_pruned=sc["frontier_pruned"] / n_steps))
 
 
 def run_lm_families(cfg: dict, device: str) -> dict:
-    """The MoE and Mamba block families, each phase's launches apart:
-    ``lm_moe`` (qwen2-moe-a2.7b) and ``lm_hybrid`` (jamba-v0.1-52b, one
-    period).  Returns {phase: its counts and launches per pass}."""
+    """The block families, each phase's launches apart: ``lm_moe``
+    (qwen2-moe-a2.7b), ``lm_hybrid`` (jamba-v0.1-52b, one period),
+    ``lm_xlstm`` (xlstm-1.3b) and ``lm_audio`` (whisper-tiny); each
+    phase's weights go before the next one's are drawn.  Returns {phase:
+    its counts and launches per pass}."""
     out = {}
-    for phase, key in (("lm_moe", "moe"), ("lm_hybrid", "hybrid")):
+    for phase, key in (("lm_moe", "moe"), ("lm_hybrid", "hybrid"), ("lm_xlstm", "xlstm"),
+                       ("lm_audio", "audio")):
         t0 = time.perf_counter()
-        out[phase] = lm_family(phase, cfg[key], device, cfg["max_flip_share"],
-                               cfg["timing_reps"])
+        if key == "audio":
+            out[phase] = lm_audio(phase, cfg[key], device, cfg["timing_reps"])
+        else:
+            out[phase] = lm_family(phase, cfg[key], device, cfg["max_flip_share"],
+                                   cfg["timing_reps"])
         out[phase]["seconds"] = time.perf_counter() - t0
+        gc.collect()
     emit("lm_families_launches", **{k: dict(v["counts"], seconds=v["seconds"])
                                      for k, v in out.items()})
     return out
@@ -3219,17 +3427,18 @@ def with_families(rows: list, fam: dict) -> list:
     """The ``kernels`` line's rows with each family phase's count under
     ``launches_by_path[phase]`` (``with_path``) and, on the flash and wide
     rows, its launches per pass."""
-    per_row = {"flash_attention_fwd": ("prefill_forward", "prefill_forward"),
-               "frontier_scores[wide]": ("decode_step_knn", "decode_step_knn"),
-               "frontier_scores[wide,parent_prune]": ("decode_step_knn",
-                                                      "decode_step_knn_pruned")}
+    per_row = {"flash_attention_fwd": (("prefill_forward", "prefill_forward"),
+                                       ("prefill_cache", "prefill_cache")),
+               "frontier_scores[wide]": (("decode_step_knn", "decode_step_knn"),),
+               "frontier_scores[wide,parent_prune]": (("decode_step_knn",
+                                                       "decode_step_knn_pruned"),)}
     for phase, got in fam.items():
         rows = with_path(rows, got["counts"], phase)
         for row in rows:
-            if row["name"] in per_row:
-                name, key = per_row[row["name"]]
-                row["launches_per_pass"] = {**row["launches_per_pass"],
-                                            f"{phase}:{name}": got["per_pass"][key]}
+            for name, key in per_row.get(row["name"], ()):
+                if key in got["per_pass"]:
+                    row["launches_per_pass"] = {**row["launches_per_pass"],
+                                                f"{phase}:{name}": got["per_pass"][key]}
     return rows
 
 

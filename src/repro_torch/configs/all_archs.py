@@ -1,9 +1,12 @@
 """The 10 assigned architectures, exact configuration numbers from the
 assignment table (sources in brackets), plus reduced smoke variants.
 
-The port's copy of ``repro/configs/all_archs.py``.  The port runs the
-dense, MoE and Mamba block families (qwen2.5-3b is the serving default);
-xlstm-1.3b and whisper-tiny are still to port.
+The port's copy of ``repro/configs/all_archs.py``.  The port runs every
+one of them (qwen2.5-3b is the serving default).  ``param_count`` is the
+reference's estimate, kept as it is: the models' exact counts are the
+reference's ``exact_param_count`` (xlstm-1.3b 3,609,147,728 against
+3,639,533,568; whisper-tiny 36,620,160 against 36,440,448), pinned by
+tests/test_torch_models.py.
 """
 from __future__ import annotations
 

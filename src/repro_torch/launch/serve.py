@@ -4,6 +4,8 @@ single-device path of ``repro/launch/serve.py``.
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --knn     # the card
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --knn  # MoE, 57 GB f32
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --knn     # xLSTM, 14 GB f32
+    python -m repro_torch.launch.serve --arch whisper-tiny --knn   # enc-dec
     python -m repro_torch.launch.serve --smoke --knn --device cpu  # the CPU
     python -m repro_torch.launch.serve --knn --knn-mutate [--knn-shards 4] --obs
     python -m repro_torch.launch.serve --knn --knn-mutate --frontend --replicas 2 --obs
@@ -17,7 +19,10 @@ the mutations through its scheduler; ``--replicas N`` ships the store's
 WAL over a socket to N read replicas behind a router; ``--obs`` turns the
 observability plane on and prints its final snapshot as one ``[obs]
 {...}`` line.  ``--mesh host`` (the sharded decode) stops with an argparse
-error naming its ROADMAP item.  Weights are random (seed 0, drawn on the
+error naming its ROADMAP item.  For an encoder-decoder (whisper) the loop
+runs no encoder, as the reference's does: the cross-attention reads the
+zero K/V of ``init_cache``, and ``--prompt-len`` + ``--steps`` may not pass
+the decoder's ``max_target_len`` positions.  Weights are random (seed 0, drawn on the
 device); ``serve_loop`` takes any parameters, so a test can pass weights
 converted from the JAX package.
 """
@@ -302,9 +307,12 @@ def main(argv=None):
     if args.mesh == "host":
         ap.error("--mesh host needs the sharded decode (ROADMAP Queue 1 "
                  "items 14-15): not ported yet")
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encdec and args.prompt_len + args.steps > cfg.max_target_len:
+        ap.error(f"--prompt-len + --steps = {args.prompt_len + args.steps} passes "
+                 f"{cfg.name}'s {cfg.max_target_len} decoder positions")
     if args.obs:
         obs.enable()
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)
     params = M.init_params(cfg, 0, device=dev)
     store = _build_store(args, cfg, dev) if args.knn else None

@@ -7,6 +7,7 @@ return the input's dtype, as in the reference.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -110,6 +111,19 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """[n, d] float32: sin on the even columns, cos on the odd ones, at
+    angles ``pos / 10000 ** (2i / d)`` worked out in float64 (the
+    reference's ``layers.py:68-75``; whisper's encoder positions)."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / 10_000 ** (dim / d)
+    out = np.zeros((n, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
 
 
 # ---- MLPs -------------------------------------------------------------------

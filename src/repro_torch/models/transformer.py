@@ -4,13 +4,15 @@ The reference scans ``n_periods`` stacked copies of the config's
 ``block_pattern``; eager PyTorch has no use for the scan, so the layers are
 a ``ModuleList`` of ``n_layers`` blocks, layer ``p * len(pattern) + j``
 being period ``p`` of the reference's ``blocks[j]`` leaves
-(models/convert.py unstacks them).  The ported block kinds are ``attn``
-(GQA attention + dense FFN), ``attn_moe`` (+ the MoE FFN), ``mamba`` and
-``mamba_moe``; the xLSTM kinds raise ``NotImplementedError``.
+(models/convert.py unstacks them).  The block kinds are ``attn`` (GQA
+attention + dense FFN), ``attn_moe`` (+ the MoE FFN), ``mamba``,
+``mamba_moe`` and the xLSTM kinds ``mlstm`` and ``slstm``, which carry no
+FFN (the reference returns after their mixer).
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -19,21 +21,22 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (MLP, Dense, Norm, _frozen,
                                        truncated_normal)
 
-_NOT_PORTED = {
-    "mlstm": "the xLSTM blocks (ROADMAP Queue 1 item 12.3)",
-    "slstm": "the xLSTM blocks (ROADMAP Queue 1 item 12.3)",
-}
-_KINDS = ("attn", "attn_moe", "mamba", "mamba_moe")
+class _Recurrent(NamedTuple):
+    """An xLSTM kind's mixer class and functions."""
+    mixer: type
+    apply: Callable
+    decode: Callable
+    init_cache: Callable
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    for kind in cfg.block_pattern:
-        if kind not in _KINDS:
-            why = _NOT_PORTED.get(kind, f"block kind {kind!r}")
-            raise NotImplementedError(f"{cfg.name}: {why} is not ported yet")
+_XLSTM = {"mlstm": _Recurrent(xlstm_mod.MLSTM, xlstm_mod.mlstm_apply, xlstm_mod.mlstm_decode,
+                              xlstm_mod.mlstm_init_cache),
+          "slstm": _Recurrent(xlstm_mod.SLSTM, xlstm_mod.slstm_apply, xlstm_mod.slstm_decode,
+                              xlstm_mod.slstm_init_cache)}
 
 
 def _dtype(cfg: ArchConfig):
@@ -54,11 +57,12 @@ def _span(name: str):
 
 class Block(nn.Module):
     """Pre-norm residual block of one ``kind``: x + mixer(norm1(x)), then
-    + ffn(norm2(x)).  The mixer is an ``Attention`` (``attn*`` kinds) or a
-    ``Mamba`` (``mamba*``); the FFN a ``MoE`` (``*_moe``), an ``MLP``, or
-    none when ``d_ff`` is 0 (reference ``_block_apply``/``_block_decode``)."""
+    + ffn(norm2(x)).  The mixer is an ``Attention`` (``attn*`` kinds), a
+    ``Mamba`` (``mamba*``), an ``MLSTM`` or an ``SLSTM``; the FFN a ``MoE``
+    (``*_moe``), an ``MLP``, or none when ``d_ff`` is 0.  The xLSTM kinds
+    have no ``norm2`` and no FFN (reference ``_block_apply``/``_block_decode``)."""
 
-    def __init__(self, kind: str, norm1: Norm, mixer: nn.Module, norm2: Norm,
+    def __init__(self, kind: str, norm1: Norm, mixer: nn.Module, norm2: Norm | None,
                  ffn: nn.Module | None):
         super().__init__()
         self.kind = kind
@@ -68,6 +72,10 @@ class Block(nn.Module):
     def init(cls, kind, cfg, dtype, *, generator, device):
         kw = dict(generator=generator, device=device)
         norm = lambda: Norm.init(cfg.d_model, cfg.norm, cfg.norm_eps, dtype, device)
+        if kind in _XLSTM:
+            return cls(kind, norm(), _XLSTM[kind].mixer.init(cfg, dtype, **kw), None, None)
+        if not kind.startswith(("attn", "mamba")):
+            raise ValueError(kind)
         mixer = (attn_mod.Attention.init(cfg, dtype, **kw) if kind.startswith("attn")
                  else ssm_mod.Mamba.init(cfg, dtype, **kw))
         if kind.endswith("_moe"):
@@ -80,6 +88,9 @@ class Block(nn.Module):
     def forward(self, cfg, x, pos, attention=None, routing=None):
         """-> (x, aux dict or None)."""
         h = self.norm1(x)
+        if self.kind in _XLSTM:
+            with _span(self.kind):
+                return x + _XLSTM[self.kind].apply(self.mixer, cfg, h), None
         if self.kind.startswith("attn"):
             with _span("attn"):
                 x = x + attn_mod.attn_apply(self.mixer, cfg, h, pos=pos, attention=attention)
@@ -90,6 +101,10 @@ class Block(nn.Module):
 
     def decode(self, cfg, x1, cslice, pos_scalar, routing=None):
         h = self.norm1(x1)
+        if self.kind in _XLSTM:
+            with _span(self.kind):
+                y, new_c = _XLSTM[self.kind].decode(self.mixer, cfg, h, cslice)
+            return x1 + y, new_c
         if self.kind.startswith("attn"):
             with _span("attn"):
                 y, kv = attn_mod.attn_decode(self.mixer, cfg, h, cslice["kv"], pos_scalar)
@@ -135,7 +150,6 @@ class LM(nn.Module):
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator, device) -> LM:
-    check_supported(cfg)
     dtype = _dtype(cfg)
     kw = dict(generator=generator, device=device)
     embed = truncated_normal((cfg.padded_vocab, cfg.d_model), 1.0, dtype, **kw)
@@ -200,14 +214,20 @@ def lm_forward(params: LM, cfg: ArchConfig, batch: dict, *, _attention=None,
 def init_cache(cfg: ArchConfig, batch: int, length: int, dtype=None,
                device=None) -> list:
     """One entry per layer: ``{"kv": (k, v)}`` [b, KV, length, dh] for an
-    attention layer, ``{"conv", "h"}`` for a Mamba layer."""
-    check_supported(cfg)
+    attention layer, ``{"conv", "h"}`` for a Mamba layer, ``{"conv", "C",
+    "n", "m"}`` for an mLSTM layer and ``{"c", "n", "h", "m"}`` for an sLSTM
+    layer (the recurrent kinds' caches do not grow with ``length``)."""
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     pattern = cfg.block_pattern
-    return [{"kv": attn_mod.init_kv_cache(cfg, batch, length, dtype, device)}
-            if pattern[layer % len(pattern)].startswith("attn")
-            else ssm_mod.mamba_init_cache(cfg, batch, dtype, device)
-            for layer in range(cfg.n_layers)]
+
+    def one(kind):
+        if kind.startswith("attn"):
+            return {"kv": attn_mod.init_kv_cache(cfg, batch, length, dtype, device)}
+        if kind in _XLSTM:
+            return _XLSTM[kind].init_cache(cfg, batch, dtype, device)
+        return ssm_mod.mamba_init_cache(cfg, batch, dtype, device)
+
+    return [one(pattern[layer % len(pattern)]) for layer in range(cfg.n_layers)]
 
 
 def lm_decode_step(params: LM, cfg: ArchConfig, token, cache, pos_scalar: int, *,

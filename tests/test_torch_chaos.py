@@ -27,6 +27,7 @@ from repro_torch.stream.faults import FaultInjector, FaultPlan  # noqa: E402
 from repro_torch.stream.lease import FenceGuard, LeaseStore, promote  # noqa: E402
 from repro_torch.stream.transport import ShippedReplica, WalShipServer  # noqa: E402
 from repro_torch.stream.wal import KIND_BATCH, WalRecord, _encode, _scan_dir  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 DIM = 6
 SEEDS = [101, 202, 303]

@@ -19,6 +19,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 TINY = dict(n=3000, dims=6, capacity=8, b_bench=16, b_exact=8, b_parity=8,
@@ -34,7 +36,10 @@ LM_TINY = dict(
     flash_cases={"path_f32": [1, 4, 4, 40, 40, 16, True, "float32"],
                  "path_bf16": [1, 4, 4, 40, 40, 16, True, "bfloat16"],
                  "gqa_sq<sk": [1, 4, 2, 20, 40, 16, True, "float32"],
-                 "noncausal_sq>sk": [1, 4, 2, 30, 12, 16, False, "float32"]},
+                 "noncausal_sq>sk": [1, 4, 2, 30, 12, 16, False, "float32"],
+                 "whisper_encoder": [2, 2, 2, 30, 30, 8, False, "float32"],
+                 "whisper_decoder": [2, 2, 2, 12, 12, 8, True, "float32"],
+                 "whisper_cross": [2, 2, 2, 12, 30, 8, False, "float32"]},
     prune_nq=16, prune_ne=64, prune_d=5, timing_reps=2)
 FOREST_TINY = dict(n=4000, dims=6, capacity=8, n_shards=4, b_bench=16, b_exact=8,
                    exact_fs=[64, 256, 1024, 4096], n_insert=60, n_delete=60,
@@ -62,6 +67,12 @@ LM_FAMILIES_TINY = dict(       # params: filled in from the reference's exact co
     hybrid=dict(arch="jamba-v0.1-52b", smoke=True, overrides={"n_layers": 8}, params=None,
                 prefill_b=2, prefill_s=16, decode_b=2, decode_len=8,
                 serve_argv=["--arch", "jamba-v0.1-52b", "--knn"] + LM_ARGV),
+    xlstm=dict(arch="xlstm-1.3b", smoke=True, overrides={}, params=None, prefill_b=2,
+               prefill_s=16, decode_b=2, decode_len=8,
+               serve_argv=["--arch", "xlstm-1.3b", "--knn"] + LM_ARGV),
+    audio=dict(arch="whisper-tiny", smoke=True, overrides={}, params=None, prefill_b=2,
+               frames=24, prefill_s=16, decode_len=8,
+               serve_argv=["--arch", "whisper-tiny", "--knn"] + LM_ARGV),
     max_flip_share=1e-3, timing_reps=2)
 KEYS = {"name", "route", "source", "replaces", "launches", "launches_per_pass",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -206,7 +217,8 @@ def test_lm_slice_rehearses_on_the_cpu(lm_and_stream):
         "pairwise_distance_prune", "flash_attention_fwd"]
     assert [r["replaces"].rsplit(":", 1)[1] for r in rows] == ["109", "121", "62", "38"]
     for r in rows:
-        extra = {"f32_cuda_core_bound_ms"} if r["name"] == "flash_attention_fwd" else set()
+        extra = ({"f32_cuda_core_bound_ms", "by_shape"} if r["name"] == "flash_attention_fwd"
+                 else set())
         extra |= {"device_ms"} if r["name"] == "pairwise_distance_prune" else set()
         extra |= {"dim", "by_dim"} if "[wide" in r["name"] else set()
         assert set(r) == KEYS | extra and r["route"] == "cuda"
@@ -214,6 +226,12 @@ def test_lm_slice_rehearses_on_the_cpu(lm_and_stream):
     for r in rows[:2]:              # the first served width in the row, the others apart
         assert r["dim"] == 160 and set(r["by_dim"]) == {"131"}
         assert set(r["by_dim"]["131"]) == {"ms", "plain_ms", "bound_ms", "bound_by"}
+    # whisper's three attentions, timed and bounded beside the LM's shape
+    shapes = rows[3]["by_shape"]
+    assert set(shapes) == {"whisper_encoder", "whisper_decoder", "whisper_cross"}
+    assert [shapes[k]["causal"] for k in sorted(shapes)] == [False, True, False]
+    assert all(v["bound_ms"] > 0 and v["ms"] > 0 and v["plain_ms"] > 0 for v in shapes.values())
+    assert shapes["whisper_cross"]["shape"] == [2, 2, 2, 12, 30, 8]
 
 
 def test_stream_path_rehearses_on_the_cpu(lm_and_stream):
@@ -345,14 +363,14 @@ def test_lm_families_rehearse_on_the_cpu():
     from repro.configs.all_archs import smoke_config
     from repro.models.model import exact_param_count
     cfg = copy.deepcopy(LM_FAMILIES_TINY)
-    for fam in ("moe", "hybrid"):
+    for fam in ("moe", "hybrid", "xlstm", "audio"):
         c = cfg[fam]
         c["params"] = exact_param_count(dataclasses.replace(smoke_config(c["arch"]),
                                                             **c["overrides"]))
-    phases, fam, moe, hyb, launches = _rehearse(
-        f"run_lm_families({cfg!r}, 'cpu')", keep=("lm_moe", "lm_hybrid",
-                                                  "lm_families_launches"))
-    assert phases == ["lm_moe", "lm_hybrid", "lm_families_launches"]
+    phases, fam, moe, hyb, xl, audio, launches = _rehearse(
+        f"run_lm_families({cfg!r}, 'cpu')", keep=("lm_moe", "lm_hybrid", "lm_xlstm",
+                                                  "lm_audio", "lm_families_launches"))
+    assert phases == ["lm_moe", "lm_hybrid", "lm_xlstm", "lm_audio", "lm_families_launches"]
     assert moe["params"] == cfg["moe"]["params"] and hyb["params"] == cfg["hybrid"]["params"]
     assert moe["reduced"] == [] and "8 of 16 layers" in hyb["reduced"][0]
     for ln, n_moe in ((moe, 2), (hyb, 4)):
@@ -371,13 +389,34 @@ def test_lm_families_rehearse_on_the_cpu():
     d = hyb["decode_vs_forward"]
     assert d["tokens_compared"] == 2 * 8 and d["max_abs_logit_err"] < 1e-4
     assert d["capacity_factor"] == 8 / 2
-    assert set(fam) == {"lm_moe", "lm_hybrid"}
-    for got in fam.values():
+    # L3: xLSTM, no attention and no MoE layer; decode against the forward
+    pf = xl["prefill"]
+    assert xl["params"] == cfg["xlstm"]["params"] and xl["reduced"] == []
+    assert pf["moe_layers"] == 0 and pf["routing_differs_share"] == 0.0
+    assert pf["tokens_compared"] == 2 * 16 and pf["max_abs_logit_err"] == 0.0
+    assert {k: v["calls"] for k, v in pf["profile"]["blocks"].items()} == {"mlstm": 14,
+                                                                          "slstm": 2}
+    d = xl["decode_vs_forward"]
+    assert d["tokens_compared"] == 2 * 8 and d["max_abs_logit_err"] < 1e-4
+    assert xl["serve"]["key_width"] == 64 and len(xl["serve"]["sample"]) == 4
+    # L4: whisper, the forward, the cross K/V and the cached decode
+    assert audio["params"] == cfg["audio"]["params"] and audio["enc_layers"] == 2
+    fw = audio["forward"]
+    assert (fw["b"], fw["frames"], fw["tokens"]) == (2, 24, 16) and fw["last_argmax_equal"]
+    assert fw["max_abs_logit_err"] <= 1e-3 * fw["max_abs_logit"]
+    assert {k: v["calls"] for k, v in fw["profile"]["blocks"].items()} == {
+        "enc_attn": 2, "attn": 2, "xattn": 2, "mlp": 4}
+    assert audio["decode_vs_forward"]["tokens"] == 8
+    assert audio["decode_vs_forward"]["max_abs_logit_err"] < 1e-4
+    assert audio["serve"]["key_width"] == 64 and audio["serve"]["store_keys"] == 2048
+    assert set(fam) == {"lm_moe", "lm_hybrid", "lm_xlstm", "lm_audio"}
+    for phase, got in fam.items():
+        extra = {"prefill_cache"} if phase == "lm_audio" else set()
         assert set(got["per_pass"]) == {"prefill_forward", "decode_step_knn",
-                                        "decode_step_knn_pruned"}
+                                        "decode_step_knn_pruned"} | extra
         assert set(got["counts"]) == {"frontier", "frontier_pruned", "frontier_wide",
                                       "frontier_wide_pruned", "distance", "flash"}
-    assert launches["lm_moe"]["seconds"] > 0
+    assert launches["lm_moe"]["seconds"] > 0 and launches["lm_audio"]["seconds"] > 0
 
 
 def test_family_counts_join_the_rows():
@@ -402,3 +441,58 @@ def test_family_counts_join_the_rows():
                                       "lm_hybrid:prefill_forward": 1}
     assert wp["launches_per_pass"]["lm_hybrid:decode_step_knn"] == 6.0
     assert d["launches_per_pass"] == {"p": 0} and rows[3]["launches_per_pass"] == {"p": 468}
+
+
+def test_xlstm_and_audio_counts_join_the_rows():
+    """The L3/L4 phases' counts under ``launches_by_path``; the flash row
+    gains the audio phase's forward and cross-K/V passes, and xLSTM's
+    flash count is 0."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = [dict(name=n, launches=c, launches_per_pass={"p": c}) for n, c in
+            (("frontier_scores[wide]", 46), ("frontier_scores[wide,parent_prune]", 258),
+             ("flash_attention_fwd", 468))]
+    counts = dict(frontier=0, frontier_pruned=0, frontier_wide=16, frontier_wide_pruned=80,
+                  distance=0, flash=0)
+    fam = {"lm_xlstm": dict(counts=counts, per_pass=dict(prefill_forward=0, decode_step_knn=1.0,
+                                                         decode_step_knn_pruned=5.0)),
+           "lm_audio": dict(counts=dict(counts, flash=52),
+                            per_pass=dict(prefill_forward=12, prefill_cache=4,
+                                          decode_step_knn=1.0, decode_step_knn_pruned=2.0))}
+    w, wp, f = chip_smoke.with_families(rows, fam)
+    assert f["launches_by_path"] == {"lm": 468, "lm_xlstm": 0, "lm_audio": 52}
+    assert f["launches_per_pass"] == {"p": 468, "lm_xlstm:prefill_forward": 0,
+                                      "lm_audio:prefill_forward": 12,
+                                      "lm_audio:prefill_cache": 4}
+    assert w["launches_by_path"] == {"lm": 46, "lm_xlstm": 16, "lm_audio": 16}
+    assert wp["launches_per_pass"]["lm_audio:decode_step_knn"] == 2.0
+
+
+def test_xlstm_and_audio_phases_pin_their_full_sizes():
+    """L3 and L4 run at full width: xlstm-1.3b at all 48 layers, b=4 x
+    2,048 and a 64-token decode; whisper-tiny at b=16 with 1,500 frames,
+    448 decoder positions and a 64-token decode; phase 8 times whisper's
+    three attention shapes at L4's batch."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    fam = chip_smoke.LM_FAMILIES_FULL
+    assert fam["xlstm"] == dict(arch="xlstm-1.3b", smoke=False, overrides={},
+                                params=3_609_147_728, prefill_b=4, prefill_s=2048,
+                                decode_b=4, decode_len=64,
+                                serve_argv=["--arch", "xlstm-1.3b", "--knn"])
+    assert fam["audio"] == dict(arch="whisper-tiny", smoke=False, overrides={},
+                                params=36_620_160, prefill_b=16, frames=1500,
+                                prefill_s=448, decode_len=64,
+                                serve_argv=["--arch", "whisper-tiny", "--knn"])
+    cases = chip_smoke.LM_FULL["flash_cases"]
+    assert cases["whisper_encoder"] == (16, 6, 6, 1500, 1500, 64, False, "float32")
+    assert cases["whisper_decoder"] == (16, 6, 6, 448, 448, 64, True, "float32")
+    assert cases["whisper_cross"] == (16, 6, 6, 448, 1500, 64, False, "float32")
+    # the bounds worked out from the shapes: three TF32 products per f32
+    # product at 495 TFLOP/s against the bytes of q, k, v and o at 3.35 TB/s
+    enc_ms, by = chip_smoke.flash_bound(4 * 16 * 6 * 1500 * 64 * 4,
+                                        4.0 * 16 * 6 * 64 * 1500 * 1500, "float32")
+    assert by == "operations" and abs(enc_ms - 0.335) < 0.001
+    cross_ms, _ = chip_smoke.flash_bound((2 * 448 + 2 * 1500) * 16 * 6 * 64 * 4,
+                                         4.0 * 16 * 6 * 64 * 448 * 1500, "float32")
+    assert abs(cross_ms - 0.100) < 0.001

@@ -22,6 +22,7 @@ from repro_torch.core.distributed import brute_force_knn  # noqa: E402
 from repro_torch.data.datagen import clustered  # noqa: E402
 from repro_torch.kernels.distance import (pairwise_distance,  # noqa: E402
                                           pairwise_distance_torch)
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 SHAPES = [(8, 8, 4), (100, 130, 20), (1, 257, 96), (33, 7, 160)]
 

@@ -19,6 +19,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.distance import (pairwise_distance_prune,  # noqa: E402
                                           pairwise_distance_prune_torch)
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 METRICS = ["d_inf", "sqeuclidean", "ip"]
 IMPLS = ["interpret", "xla"]

@@ -18,6 +18,7 @@ from repro_torch.core.convert import tree_to_numpy  # noqa: E402
 from repro_torch.core.engine import SMTreeEngine  # noqa: E402
 from repro_torch.core.metric import get_metric  # noqa: E402
 from repro_torch.data.datagen import clustered, uniform  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 METRICS = ["d_inf", "l2", "l1"]
 

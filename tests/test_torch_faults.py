@@ -8,6 +8,7 @@ pytest.importorskip("torch")
 
 from repro.stream import faults as JF  # noqa: E402
 from repro_torch.stream import faults as TF  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 PLANS = {
     "frames": dict(drop_p=0.2, dup_p=0.15, reorder_p=0.25, torn_p=0.3),

@@ -24,6 +24,7 @@ from repro_torch.kernels.attention_plain import (NEG_INF,  # noqa: E402
                                                  decode_attention)
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,  # noqa: E402
                                                  flash_attention_torch)
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 CASES = [
     # b, h, hk, sq, sk, d

@@ -27,6 +27,7 @@ from repro_torch.core.convert import (forest_from_numpy,  # noqa: E402
                                       tree_from_numpy, tree_to_numpy)
 from repro_torch.core.engine import SMTreeEngine  # noqa: E402
 from repro_torch.data.datagen import clustered, uniform  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 S = 4

@@ -22,6 +22,7 @@ from repro_torch.core.metric import pairwise  # noqa: E402
 from repro_torch.serve.frontend import (FrontendConfig, QueueFull,  # noqa: E402
                                         ServeFrontend, pinned_knn)
 from repro_torch.stream import StreamingEngine  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 N, DIM = 384, 6
 

@@ -17,6 +17,7 @@ from repro.kernels.frontier import (_PRUNE_PAD as REF_PAD,  # noqa: E402
 from repro_torch.kernels.frontier import (_PRUNE_PAD,  # noqa: E402
                                           frontier_scores,
                                           frontier_scores_torch)
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 METRICS = ["d_inf", "l2", "l1"]
 OUT_NAMES = ("dmax", "score", "leaf_d", "dq")

@@ -33,6 +33,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core.metric import _sum_last as ref_sum_last  # noqa: E402
 from repro_torch.core.metric import _sum_last  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 CU = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
       / "csrc" / "frontier.cu")

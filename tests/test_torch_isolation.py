@@ -191,6 +191,52 @@ def test_model_families_run_with_jax_blocked():
     assert proc.stdout.split() == ["ok"]
 
 
+def test_xlstm_and_encdec_run_with_jax_blocked():
+    """The xLSTM blocks (``models.xlstm``) and the encoder-decoder
+    (``models.encdec``) run xlstm-1.3b's and whisper-tiny's smoke models,
+    forward, cache and decode, and ``launch/serve --knn`` for both, with
+    ``jax`` blocked, and load nothing of the JAX package."""
+    proc = _run("""
+        import sys
+        sys.modules["jax"] = None
+        import torch
+        from repro_torch.configs import smoke_config
+        from repro_torch.launch import serve
+        from repro_torch.models import model as M, encdec, xlstm
+        g = torch.Generator().manual_seed(0)
+        cfg = smoke_config("xlstm-1.3b")
+        params = M.init_params(cfg, 0, device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=g)
+        logits, _ = M.forward(params, cfg, {"tokens": toks})
+        cache = M.init_cache(cfg, 2, 4, device="cpu")
+        lg, cache = M.decode_step(params, cfg, toks[:, 0], cache, 0)
+        assert torch.allclose(lg, logits[:, 0], atol=1e-4, rtol=1e-4)
+        assert isinstance(params.blocks[0].mixer, xlstm.MLSTM)
+        assert isinstance(params.blocks[7].mixer, xlstm.SLSTM)
+        cfg = smoke_config("whisper-tiny")
+        params = M.init_params(cfg, 0, device="cpu")
+        assert isinstance(params, encdec.EncDec)
+        frames = torch.randn((2, 20, cfg.d_model), generator=g)
+        logits, _ = M.forward(params, cfg, {"frames": frames, "tokens": toks})
+        cache = encdec.encdec_prefill_cache(params, cfg, frames,
+                                            M.init_cache(cfg, 2, 20, device="cpu"))
+        lg, cache = M.decode_step(params, cfg, toks[:, 0], cache, 0)
+        assert torch.allclose(lg, logits[:, 0], atol=1e-4, rtol=1e-4)
+        for arch in ("xlstm-1.3b", "whisper-tiny"):
+            out = serve.main(["--smoke", "--arch", arch, "--knn", "--device", "cpu",
+                              "--batch", "2", "--prompt-len", "3", "--steps", "2"])
+            assert out.shape == (2, 3)
+        bad = sorted(m for m, v in sys.modules.items() if v is not None and
+                     (m == "jax" or m.startswith("jax.") or m == "repro"
+                      or m.startswith("repro.")))
+        assert not bad, bad
+        assert "repro_torch.kernels._build" not in sys.modules
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -556,7 +556,10 @@ def _qkv(rng, dev, b, h, hk, sq, sk, d, dtype):
     # 128 f32 / 256 bf16 a block) and the key-tile edges (32 f32, 64 bf16)
     (1, 2, 1, 63, 129, 128), (1, 2, 1, 65, 127, 64), (1, 2, 1, 129, 191, 128),
     # rows of 50 elements: not a multiple of 16 bytes in either dtype
-    (1, 3, 1, 70, 90, 50)])
+    (1, 3, 1, 70, 90, 50),
+    # whisper-tiny's three attentions with b cut: the encoder over 1,500
+    # frames, the decoder's 448 positions, the cross-attention onto the frames
+    (1, 6, 6, 1500, 1500, 64), (1, 6, 6, 448, 448, 64), (1, 6, 6, 448, 1500, 64)])
 def test_flash_kernel_matches_plain(cuda, b, h, hk, sq, sk, d, causal, dtype, tol):
     rng = np.random.default_rng(b * 7 + sq + sk + d)
     q, k, v = _qkv(rng, cuda, b, h, hk, sq, sk, d, dtype)

@@ -28,6 +28,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serve import knnlm  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 FIELDS = ("dists", "ids", "page_hits", "dist_evals", "overflow")
 

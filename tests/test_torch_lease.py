@@ -24,6 +24,7 @@ from repro_torch.stream import (DigestMismatch, FencedOut, Replica,  # noqa: E40
 from repro_torch.stream.lease import (FenceGuard, LeaseLost, LeaseStore,  # noqa: E402
                                       promote)
 from repro_torch.stream.transport import ShippedReplica, WalShipServer  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 DIM = 6

@@ -12,6 +12,7 @@ import jax  # noqa: E402,F401  (both sides in one process; JAX stays on the CPU)
 
 from repro.core import metric as ref  # noqa: E402
 from repro_torch.core import metric as port  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 METRICS = ["d_inf", "l2", "l1"]
 DIMS = [1, 2, 3, 7, 8, 13, 20, 33]

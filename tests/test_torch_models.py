@@ -5,9 +5,11 @@ numpy and into the port through ``models.convert.params_from_jax``.  The
 JAX side uses its XLA attention (``ATTN_IMPL = "xla"``), the port its plain
 attention (CPU tensors).  Tolerance 1e-4 on logits, aux values and decode
 caches: the two frameworks sum the matrix products in different orders.
-In bfloat16, logits within 2 bf16 ulps of the largest |logit|.  The MoE
-and Mamba families (qwen2-moe, grok, jamba) map the port's layer
-``p * len(pattern) + j`` to the reference's ``blocks[j]`` at period ``p``.
+In bfloat16, logits within 2 bf16 ulps of the largest |logit|.  The MoE,
+Mamba and xLSTM families (qwen2-moe, grok, jamba, xlstm) map the port's
+layer ``p * len(pattern) + j`` to the reference's ``blocks[j]`` at period
+``p``; the encoder-decoder (whisper) takes frames beside its tokens, and
+its decode runs after ``encdec_prefill_cache`` on both sides.
 """
 import dataclasses
 import sys
@@ -24,11 +26,13 @@ from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 TOL = 1e-4
 DENSE_ARCHS = ["qwen2.5-3b", "starcoder2-3b", "codeqwen1.5-7b", "yi-34b",
                "internvl2-1b"]
-FAMILY_ARCHS = ["qwen2-moe-a2.7b", "grok-1-314b", "jamba-v0.1-52b"]
+FAMILY_ARCHS = ["qwen2-moe-a2.7b", "grok-1-314b", "jamba-v0.1-52b", "xlstm-1.3b",
+                "whisper-tiny"]
 
 
 def _pair(arch, **overrides):
@@ -46,7 +50,13 @@ def _batch(cfg, b=2, s=24, seed=0):
     if cfg.frontend == "vision_stub":
         batch["image_embeds"] = rng.normal(
             size=(b, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        batch["frames"] = rng.normal(size=(b, s + 5, cfg.d_model)).astype(np.float32)
     return batch
+
+
+def _jnp(batch):
+    return {k: jax.numpy.asarray(v) for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
@@ -139,15 +149,15 @@ def test_full_config_matches_reference_numbers():
     assert 3.0e9 < cfg.param_count < 3.2e9
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-tiny"])
-def test_unported_families_raise(arch):
-    cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, 0, device="cpu")
-
-
 def _assert_caches(cache, jcache, cfg):
-    """The port's per-layer cache against the reference's stacked one."""
+    """The port's per-layer cache against the reference's stacked one (an
+    enc-dec cache: the same four stacked fields on both sides)."""
+    if cfg.is_encdec:
+        assert set(cache) == set(jcache)
+        for key in cache:
+            np.testing.assert_allclose(cache[key].float().numpy(), np.asarray(jcache[key]),
+                                       rtol=TOL, atol=TOL, err_msg=key)
+        return
     P = len(cfg.block_pattern)
     for layer in range(cfg.n_layers):
         j, per = layer % P, layer // P
@@ -166,14 +176,17 @@ def _assert_caches(cache, jcache, cfg):
 def test_family_forward_logits_and_aux_match_jax(arch):
     jcfg, jparams, cfg, params = _pair(arch)
     batch = _batch(cfg)
-    want, waux = JM.forward(jparams, jcfg, {"tokens": jax.numpy.asarray(batch["tokens"])})
+    want, waux = JM.forward(jparams, jcfg, _jnp(batch))
     got, aux = M.forward(params, cfg, batch)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
     assert set(aux) == set(waux) == {"lb_loss", "z_loss", "drop_frac"}
     for k in aux:
         np.testing.assert_allclose(float(aux[k]), float(waux[k]), rtol=TOL, atol=TOL,
                                    err_msg=k)
-    assert float(aux["drop_frac"]) > 0 and float(aux["lb_loss"]) > 0
+    if cfg.n_experts:
+        assert float(aux["drop_frac"]) > 0 and float(aux["lb_loss"]) > 0
+    else:
+        assert all(float(v) == 0.0 for v in aux.values())
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
@@ -183,8 +196,20 @@ def test_family_decode_steps_and_caches_match_jax(arch):
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (8, b)).astype(np.int32)
     jcache = JM.init_cache(jcfg, b, length)
     cache = M.init_cache(cfg, b, length, device="cpu")
-    kinds = {tuple(c) for c in cache}
-    assert kinds == ({("kv",), ("conv", "h")} if "mamba" in cfg.block_pattern else {("kv",)})
+    if cfg.is_encdec:
+        # length is the encoder's: fill the cross K/V from frames that long
+        from repro.models.encdec import encdec_prefill_cache as jprefill
+        from repro_torch.models.encdec import encdec_prefill_cache
+        frames = _batch(cfg, b=b, s=length - 5, seed=3)["frames"]
+        jcache = jprefill(jparams, jcfg, jax.numpy.asarray(frames), jcache)
+        cache = encdec_prefill_cache(params, cfg, frames, cache)
+        assert set(cache) == {"self_k", "self_v", "cross_k", "cross_v"}
+    else:
+        kinds = {tuple(c) for c in cache}
+        want = {"attn": ("kv",), "attn_moe": ("kv",), "mamba": ("conv", "h"),
+                "mamba_moe": ("conv", "h"), "mlstm": ("conv", "C", "n", "m"),
+                "slstm": ("c", "n", "h", "m")}
+        assert kinds == {want[k] for k in cfg.block_pattern}
     for pos in range(8):
         jl, jcache = JM.decode_step(jparams, jcfg, jax.numpy.asarray(toks[pos]),
                                     jcache, jax.numpy.int32(pos))
@@ -196,14 +221,25 @@ def test_family_decode_steps_and_caches_match_jax(arch):
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_family_decode_agrees_with_dropless_forward(arch):
     """Decode is dropless (capacity = batch); a forward with capacity
-    factor E / k is too, and gives the same logits and routing."""
+    factor E / k is too, and gives the same logits and routing.  Without
+    MoE layers the forward as it is (xLSTM: chunk-parallel against
+    recurrent; whisper: after the cross K/V of the forward's frames)."""
     _, _, cfg, params = _pair(arch)
-    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
-    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    batch = _batch(cfg, s=10, seed=2)
+    toks = batch["tokens"]
     routing = []
-    full, aux = M.forward(params, cfg, {"tokens": toks}, _routing=routing)
+    full, aux = M.forward(params, cfg, batch, _routing=routing)
     assert float(aux["drop_frac"]) == 0.0
-    cache = M.init_cache(cfg, 2, 10, device="cpu")
+    assert bool(routing) == bool(cfg.n_experts)
+    if cfg.is_encdec:
+        from repro_torch.models.encdec import encdec_prefill_cache
+        frames = batch["frames"]
+        cache = encdec_prefill_cache(params, cfg, frames, M.init_cache(
+            cfg, 2, frames.shape[1], device="cpu"))
+    else:
+        cache = M.init_cache(cfg, 2, 10, device="cpu")
     for pos in range(10):
         step = []
         lg, cache = M.decode_step(params, cfg, torch.from_numpy(toks[:, pos]), cache, pos,
@@ -297,29 +333,61 @@ def test_full_family_param_counts():
     assert fam["hybrid"]["params"] == 13_295_235_072
 
 
+@pytest.mark.parametrize("arch,exact,cfg_count", [
+    ("xlstm-1.3b", 3_609_147_728, 3_639_533_568),
+    ("whisper-tiny", 36_620_160, 36_440_448)])
+def test_exact_param_counts_of_the_recurrent_and_encdec_families(arch, exact, cfg_count):
+    """At full size on the meta device the port's parameters equal the
+    reference's ``exact_param_count``; ``cfg.param_count`` (the reference's
+    copy, left as it is) differs, and ``chip_smoke.py`` pins the exact
+    count."""
+    from repro.configs import get_config as jax_get_config
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.models import encdec, transformer
+    cfg = get_config(arch)
+    meta = (encdec.init_encdec if cfg.is_encdec else transformer.init_lm)(
+        cfg, torch.Generator(), "meta")
+    assert M.param_count(meta) == JM.exact_param_count(jax_get_config(arch)) == exact
+    assert cfg.param_count == cfg_count
+    key = "audio" if cfg.is_encdec else "xlstm"
+    assert chip_smoke.LM_FAMILIES_FULL[key]["params"] == exact
+
+
 @pytest.mark.parametrize("arch", FAMILY_ARCHS + ["qwen2.5-3b"])
 def test_block_spans_count_each_kind_under_the_profiler(arch):
     """Under torch.profiler each block opens one ``block.<kind>`` range
     around its mixer and one around its FFN, in a forward and in a decode
-    step; the logits are those of a run without the profiler."""
+    step (an xLSTM block has no FFN; whisper's encoder blocks open
+    ``enc_attn`` and run in the forward only, its decoder blocks ``attn``,
+    ``xattn`` and ``mlp``); the logits are those of a run without the
+    profiler."""
     _, _, cfg, params = _pair(arch)
-    toks = _batch(cfg, b=2, s=8)["tokens"]
-    plain, _ = M.forward(params, cfg, {"tokens": toks})
+    batch = _batch(cfg, b=2, s=8)
+    toks = batch["tokens"]
+    plain, _ = M.forward(params, cfg, batch)
     pattern = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
     want = {"attn": sum(k.startswith("attn") for k in pattern),
             "mamba": sum(k.startswith("mamba") for k in pattern),
+            "mlstm": sum(k == "mlstm" for k in pattern),
+            "slstm": sum(k == "slstm" for k in pattern),
             "moe": sum(k.endswith("_moe") for k in pattern),
             "mlp": sum(not k.endswith("_moe") for k in pattern) if cfg.d_ff else 0}
     want = {k: v for k, v in want.items() if v}
+    wants = {"forward": want, "decode": want}
     cache = M.init_cache(cfg, 2, 8, device="cpu")
+    if cfg.is_encdec:
+        E, L = cfg.encoder_layers, cfg.n_layers
+        wants = {"forward": {"enc_attn": E, "attn": L, "xattn": L, "mlp": E + L},
+                 "decode": {"attn": L, "xattn": L, "mlp": L}}
     acts = [torch.profiler.ProfilerActivity.CPU]
     for run in ("forward", "decode"):
         with torch.profiler.profile(activities=acts) as prof:
             if run == "forward":
-                got, _ = M.forward(params, cfg, {"tokens": toks})
+                got, _ = M.forward(params, cfg, batch)
             else:
                 M.decode_step(params, cfg, torch.from_numpy(toks[:, 0]), cache, 0)
         spans = {ev.key.removeprefix("block."): ev.count for ev in prof.key_averages()
                  if ev.key.startswith("block.")}
-        assert spans == want, run
+        assert spans == wants[run], run
     assert torch.equal(got, plain)

@@ -21,6 +21,7 @@ from repro.models import moe as J  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import MLP, Dense  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 TOL = 1e-4
 

@@ -21,6 +21,7 @@ from repro_torch.core import ref_impl as TR  # noqa: E402
 from repro_torch.core import smtree as T  # noqa: E402
 from repro_torch.core.convert import tree_from_numpy, tree_to_numpy  # noqa: E402
 from repro_torch.data.datagen import clustered, uniform  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 
 def jax_fields(t):

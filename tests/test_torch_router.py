@@ -21,6 +21,7 @@ from repro_torch.serve.router import (LeaderUnavailable, ReplicaRouter,  # noqa:
                                       SessionToken, StaleReplica)
 from repro_torch.stream import Replica, StreamingEngine, WriteAheadLog  # noqa: E402
 from repro_torch.stream.faults import FaultInjector, FaultPlan  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 N, DIM = 300, 6
 

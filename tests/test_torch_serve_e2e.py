@@ -20,6 +20,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serve.frontend import FrontendConfig, ServeFrontend  # noqa: E402
 from repro_torch.stream import StreamingEngine, WriteAheadLog, ledger_digest  # noqa: E402
 from repro_torch.stream.transport import ShippedReplica, WalShipServer  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 N, DIM, K = 600, 6, 3
 N_CLIENTS, QUERIES_PER_CLIENT, WRITER_STEPS = 4, 15, 10

@@ -16,6 +16,7 @@ from repro.core import smtree as J  # noqa: E402
 from repro_torch.core import smtree as T  # noqa: E402
 from repro_torch.core.convert import tree_from_numpy, tree_to_numpy  # noqa: E402
 from repro_torch.data.datagen import clustered, uniform  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 FIELDS = ("dists", "ids", "page_hits", "dist_evals", "overflow")
 

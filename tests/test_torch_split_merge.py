@@ -31,6 +31,7 @@ from repro_torch.data.datagen import clustered  # noqa: E402
 from repro_torch.stream import batcher as TB  # noqa: E402
 from test_torch_mutations import (assert_same_tree, digest_of,  # noqa: E402
                                   every_status_log, jax_fields)
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 # metric -> (capacity, dim): the three geometries of this file
 GEOS = {"d_inf": (8, 5), "l2": (12, 7), "l1": (16, 10)}

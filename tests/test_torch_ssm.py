@@ -20,6 +20,7 @@ from repro.models import ssm as J  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.layers import Dense  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 TOL = 1e-4
 ARCH = "jamba-v0.1-52b"

@@ -27,6 +27,7 @@ from repro_torch.core import distributed as TD  # noqa: E402
 from repro_torch.core import smtree as T  # noqa: E402
 from repro_torch.data.datagen import clustered  # noqa: E402
 from repro_torch.dist import checkpoint as TC  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 S = 4
 N = 1200

@@ -28,6 +28,7 @@ from repro_torch.stream.transport import (ShippedReplica, ShipStall,  # noqa: E4
                                           TransportError, WalShipClient,
                                           WalShipServer)
 from repro_torch.stream.wal import _scan_dir  # noqa: E402
+from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
 
 DIM = 6
 PUMP_SEEDS = list(range(6, 26))
