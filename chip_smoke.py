@@ -233,13 +233,37 @@ each phase's weights let go before the next one's are drawn:
       (no encoder runs there, as in the reference; keys of width 384) with
       the same retrieval check.
 
+The training path (``run_train``), after the families' weights are gone,
+counted under ``launches_by_path.train``; the launches of its checks are
+put back by ``uncounted()``:
+
+  T1. train_full: qwen2.5-3b at full width and depth in f32 (exactly
+      3,085,938,688 parameters, seeded random weights that require grad,
+      AdamW's two f32 moments; remat by layer), b=2 x 2048 tokens from
+      ``synth_batch``.  Checks from the first state: a forward and
+      backward through the flash kernel (36 launches in the forward, 36
+      in remat's recompute) held against the same through the plain
+      attention (loss within 1e-4, grad_norm within 1e-3, relative), and
+      a second pass through the kernel equal to the first bitwise (loss
+      and grad_norm).  Then a warm step, 3 timed steps (ms, tokens/s,
+      peak memory, every loss and grad_norm finite and grad_norm > 0, 72
+      flash launches a step) and one profiled step split into forward,
+      backward (remat's recompute and the plain attention VJP) and
+      optimizer (``profile_train``: busy ms and ``block.<kind>`` spans by
+      phase, the idle share);
+  T2. train_resume: ``launch/train.main`` on the card with the smoke
+      qwen2.5-3b, 24 steps straight, then killed by ``--fail-at 13`` with
+      ``--ckpt-every 8`` and resumed: the final losses equal bitwise; then
+      ``compressed_mean_hook`` with error feedback over 3 batches of the
+      smoke model's gradients, on the card and on the CPU, bitwise.
+
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
 library ms; ``launches_by_path`` gives every path's count apart: ``index``
 and ``forest`` for the narrow rows and the scan, ``lm``, ``lm_moe``,
 ``lm_hybrid``, ``lm_xlstm`` and ``lm_audio`` for the LM rows, and
-``stream`` and ``serve`` for all; the
+``stream``, ``serve`` and ``train`` for all; the
 distance scan at the index path's shape, with
 its device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -317,6 +341,16 @@ LM_FAMILIES_FULL = dict(
                prefill_b=16, frames=1500, prefill_s=448, decode_len=64,
                serve_argv=["--arch", "whisper-tiny", "--knn"]),
     max_flip_share=1e-3, timing_reps=2)
+# the training path (run_train): T1 qwen2.5-3b at full width and depth in
+# f32 (params, grads and both moments ~49.4 GB; b=2 x 2048 tokens, remat
+# on; b=4 was worked out at ~72 GB), T2 the reference's kill/resume
+# contract on the smoke model (tests/test_checkpoint.py's N, k and fail-at)
+TRAIN_FULL = dict(
+    full=dict(arch="qwen2.5-3b", smoke=False, params=3_085_938_688, b=2, s=2048,
+              timed_steps=3, opt=dict(lr=3e-4, warmup_steps=2, total_steps=100),
+              loss_rtol=1e-4, gnorm_rtol=1e-3, attn_tol=2e-4, reduced=[]),
+    resume=dict(arch="qwen2.5-3b", steps=24, seq_len=32, global_batch=4, ckpt_every=8,
+                fail_at=13, hook_steps=3))
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
 H100_TF32_FLOP_PER_S = 495e12     # tensor cores, dense (H100 SXM data sheet)
@@ -3423,12 +3457,320 @@ def run_lm_families(cfg: dict, device: str) -> dict:
     return out
 
 
+def profile_train(fn, wall_ms: float, on_card: bool = True) -> dict:
+    """One training step by phase (torch.profiler).  The step opens
+    ``train.forward``, ``train.backward`` and ``train.optimizer`` ranges and
+    waits for the card at the end of each (``train_step._phase``), so every
+    kernel of a phase starts inside that phase's host-side range.  Per
+    phase: its host span, the busy ms and count of the kernels that start
+    in it, and the calls and device-side spans of the ``block.<kind>``
+    ranges that start in it (the backward's are remat's recompute); the
+    step's busy ms, its idle share of ``wall_ms`` and the top 8 kernels.
+    Off the card, only the phases' spans and the blocks' calls."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+    phases, kernels, blocks = {}, [], []
+    for ev in prof.profiler.kineto_results.events():
+        name, dev = ev.name(), "cuda" if "CUDA" in str(ev.device_type()) else "cpu"
+        if name.startswith("train.") and dev == "cpu":
+            phases[name.removeprefix("train.")] = (ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        elif name.startswith("block."):
+            if (dev == "cuda") == on_card:
+                blocks.append((name.removeprefix("block."), ev.start_ns(), ev.duration_ns()))
+        elif dev == "cuda" and not ev.is_user_annotation():
+            kernels.append((name, ev.start_ns(), ev.duration_ns()))
+
+    def phase_of(t):
+        return next((k for k, (a, b) in phases.items() if a <= t <= b), "outside")
+
+    by_phase = {k: dict(span_ms=(b - a) / 1e6, busy_ms=0.0 if on_card else None, kernels=0,
+                        blocks={}) for k, (a, b) in phases.items()}
+    by_phase["outside"] = dict(span_ms=None, busy_ms=0.0 if on_card else None, kernels=0,
+                               blocks={})
+    top: dict = {}
+    for name, t, dur in kernels:
+        ph = by_phase[phase_of(t)]
+        ph["busy_ms"] += dur / 1e6
+        ph["kernels"] += 1
+        k = top.setdefault(name, [0.0, 0])
+        k[0] += dur / 1e6
+        k[1] += 1
+    for kind, t, dur in blocks:
+        b = by_phase[phase_of(t)]["blocks"].setdefault(
+            kind, dict(calls=0, span_ms=0.0 if on_card else None))
+        b["calls"] += 1
+        if on_card:
+            b["span_ms"] += dur / 1e6
+    if not by_phase["outside"]["kernels"] and not by_phase["outside"]["blocks"]:
+        del by_phase["outside"]
+    out = dict(phases=by_phase)
+    if on_card:
+        busy = sum(dur for _, _, dur in kernels) / 1e6
+        flash = sum(ms for name, (ms, _) in top.items() if "flash_fwd_kernel" in name)
+        out.update(wall_ms=wall_ms, device_busy_ms=busy,
+                   device_idle_share=max(0.0, 1.0 - busy / wall_ms), flash_ms=flash,
+                   kernels=[dict(name=name[:72], ms=ms, calls=n) for name, (ms, n) in
+                            sorted(top.items(), key=lambda kv: kv[1][0], reverse=True)[:8]])
+    return out
+
+
+def train_full(cfg: dict, device: str) -> dict:
+    """T1 ``train_full``: qwen2.5-3b at full width and depth in f32 (seeded
+    random weights, remat on), b x s tokens from ``synth_batch``.  Checks
+    first, from the first state and outside the counts: one forward and
+    backward through the kernel held against the same through the plain
+    attention (loss and grad_norm within ``loss_rtol`` / ``gnorm_rtol``),
+    a second one through the kernel that must give the same loss and
+    grad_norm bitwise (two gradients at full width, not two 49-GB states),
+    and every layer's attention on the first pass's own inputs, kernel
+    against plain, element by element (within ``attn_tol`` + ``attn_tol``
+    x |plain|).
+    Then the path: a warm step, ``timed_steps`` steps on the host clock
+    ending in a synchronize, and one profiled step (``profile_train``);
+    every step's loss and grad_norm finite and grad_norm > 0, flash launches
+    a step (the forward's and remat's recompute's), peak memory.  Returns
+    its record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_torch
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import AdamWConfig, global_norm
+    from repro_torch.train.train_step import (TrainSettings, init_all, loss_and_grads,
+                                              make_train_step)
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    sync, _, wall = timers(on_card)
+    free = (lambda: torch.cuda.empty_cache()) if on_card else (lambda: None)
+    mcfg = smoke_config(cfg["arch"]) if cfg["smoke"] else get_config(cfg["arch"])
+    n_attn = sum(k.startswith("attn") for k in mcfg.block_pattern) * mcfg.n_periods
+    B, S = cfg["b"], cfg["s"]
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    (params, opt), init_s = wall(lambda: init_all(mcfg, 0, device=device))
+    n_params = M.param_count(params)
+    check(n_params == cfg["params"], f"train_full: {n_params} parameters, not {cfg['params']}")
+    state_gb = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    dc = DataConfig(vocab_size=mcfg.vocab_size, seq_len=S, global_batch=B)
+    n_steps = 2 + cfg["timed_steps"]                       # warm, timed, profiled
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(dc, i).items()}
+               for i in range(n_steps)]
+    settings = TrainSettings(opt=AdamWConfig(**cfg["opt"]))
+
+    def fwd_bwd(**kw):
+        total, metrics, grads = loss_and_grads(params, mcfg, batches[0], settings, **kw)
+        gnorm = global_norm(grads)
+        del grads
+        return total, metrics["loss"], gnorm
+
+    captured = []
+
+    def capture(q, k, v, **kw):
+        """The default attention, keeping the forward's inputs (not remat's)."""
+        if len(captured) < n_attn:
+            captured.append((q.detach(), k.detach(), v.detach(), kw))
+        return flash_attention_fwd(q, k, v, **kw)
+
+    # the checks, from the first state, outside the counts
+    with uncounted():
+        c0 = stream_counts()["flash"]
+        (tot_k, loss_k, gn_k), fb_s = wall(lambda: fwd_bwd(_attention=capture))
+        per_fwd_bwd = stream_counts()["flash"] - c0
+        (tot_2, loss_2, gn_2), fb2_s = wall(fwd_bwd)
+        free()
+        (tot_p, loss_p, gn_p), plain_s = wall(lambda: fwd_bwd(_attention=flash_attention_torch))
+        free()
+        # every layer's attention, at the training shape on the forward's
+        # own inputs: the kernel against the plain version, element by
+        # element, within phase 8's f32 tolerance
+        tol, layer_err = cfg["attn_tol"], []
+        for q, k, v, kw in captured:
+            got, want = flash_attention_fwd(q, k, v, **kw), flash_attention_torch(q, k, v, **kw)
+            diff = (got - want).abs()
+            layer_err.append(float(diff.max()))
+            check(bool((diff <= tol + tol * want.abs()).all()),
+                  f"train_full: layer {len(layer_err) - 1}'s attention beyond {tol} of the "
+                  f"plain version (max abs err {layer_err[-1]})")
+            del got, want, diff
+        attn_shape = list(captured[0][0].shape) if captured else None
+        captured.clear()
+        free()
+    check(len(layer_err) == n_attn, f"train_full: {len(layer_err)} attention calls held, "
+                                    f"not {n_attn}")
+    check_peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    bitwise = bool(torch.equal(tot_k, tot_2) and torch.equal(gn_k, gn_2))
+    check(bitwise, f"train_full: two backward passes from one state differ: grad_norm "
+                   f"{float(gn_k)!r} vs {float(gn_2)!r}, loss {float(tot_k)!r} vs {float(tot_2)!r}")
+    lk, lp, gk, gp = (float(x) for x in (loss_k, loss_p, gn_k, gn_p))
+    check(abs(lk - lp) <= cfg["loss_rtol"] * abs(lp),
+          f"train_full: loss kernel vs plain {lk} vs {lp} (rtol {cfg['loss_rtol']})")
+    check(abs(gk - gp) <= cfg["gnorm_rtol"] * gp,
+          f"train_full: grad_norm kernel vs plain {gk} vs {gp} (rtol {cfg['gnorm_rtol']})")
+    if on_card:
+        check(per_fwd_bwd == 2 * n_attn,
+              f"train_full: {per_fwd_bwd} flash launches a forward and backward, not {2 * n_attn}")
+
+    # the path: a warm step, timed steps, a profiled step
+    step_fn = make_train_step(mcfg, settings)
+    state = {"opt": opt}
+    history = []
+
+    def step(i):
+        _, state["opt"], m = step_fn(params, state["opt"], batches[i])
+        history.append(m)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    c0 = stream_counts()["flash"]
+    _, warm_s = wall(lambda: step(0))
+    timed = [wall(lambda i=i: step(i))[1] for i in range(1, 1 + cfg["timed_steps"])]
+    step_ms = float(np.mean(timed)) * 1e3
+    where, profile_s = wall(lambda: profile_train(lambda: step(n_steps - 1), step_ms, on_card))
+    where["seconds"] = profile_s
+    flash_per_step = (stream_counts()["flash"] - c0) / n_steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    losses = [float(m["loss"]) for m in history]
+    gnorms = [float(m["grad_norm"]) for m in history]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)) and min(gnorms) > 0,
+          f"train_full: loss {losses} or grad_norm {gnorms} not finite and positive")
+    if on_card:
+        check(flash_per_step == 2 * n_attn,
+              f"train_full: {flash_per_step} flash launches a step, not {2 * n_attn}")
+    out = dict(arch=mcfg.name, n_layers=mcfg.n_layers, d_model=mcfg.d_model,
+               heads=[mcfg.n_heads, mcfg.n_kv_heads, mcfg.d_head], vocab=mcfg.vocab_size,
+               dtype=mcfg.param_dtype, params=n_params, tied=mcfg.tie_embeddings,
+               remat=settings.remat, opt=cfg["opt"], b=B, s=S, reduced=cfg["reduced"],
+               init_seconds=init_s, state_gb=state_gb,
+               checks=dict(fwd_bwd_ms=[fb_s * 1e3, fb2_s * 1e3], plain_fwd_bwd_ms=plain_s * 1e3,
+                           loss_kernel=lk, loss_plain=lp, grad_norm_kernel=gk,
+                           grad_norm_plain=gp, loss_rtol=cfg["loss_rtol"],
+                           gnorm_rtol=cfg["gnorm_rtol"], grad_norm_bitwise_twice=bitwise,
+                           attention_shape=attn_shape, attention_tol=cfg["attn_tol"],
+                           attention_max_abs_err=max(layer_err),
+                           attention_max_abs_err_by_layer=layer_err,
+                           flash_launches_fwd_bwd=per_fwd_bwd, peak_gb=check_peak_gb),
+               warm_step_ms=warm_s * 1e3, step_ms=[t * 1e3 for t in timed],
+               mean_step_ms=step_ms, tokens_per_s=B * S / (step_ms / 1e3),
+               peak_gb=peak_gb, flash_launches_per_step=flash_per_step,
+               losses=losses, grad_norms=gnorms, lr=[float(m["lr"]) for m in history],
+               profile=where)
+    del params, state, opt, batches, history
+    gc.collect()
+    free()
+    emit("train_full", **out)
+    return out
+
+
+def train_resume(cfg: dict, device: str) -> dict:
+    """T2 ``train_resume``: the reference's kill/resume contract through
+    ``launch/train.main`` on the device: ``steps`` steps straight, then
+    again with ``--ckpt-every`` and ``--fail-at`` (``SystemExit``), then
+    ``--resume``; the final losses equal, bitwise.  Then, outside the
+    counts, ``compressed_mean_hook`` with error feedback over the smoke
+    model's gradients (the run's weights at its start, ``hook_steps``
+    batches): on the device and on the CPU, bitwise."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.dist.compression import compressed_mean_hook, init_ef_state
+    from repro_torch.launch import train
+    from repro_torch.models.convert import reference_layout
+    from repro_torch.train.train_step import TrainSettings, init_all, loss_and_grads
+
+    _, _, wall = timers(device == "cuda")
+    argv = ["--arch", cfg["arch"], "--smoke", "--steps", str(cfg["steps"]), "--seq-len",
+            str(cfg["seq_len"]), "--global-batch", str(cfg["global_batch"]), "--log-every",
+            str(cfg["steps"]), "--device", device]
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ck = ["--ckpt-dir", root, "--ckpt-every", str(cfg["ckpt_every"])]
+        straight, straight_s = wall(lambda: train.main(argv))
+        try:
+            train.main(argv + ck + ["--fail-at", str(cfg["fail_at"])])
+            crashed = False
+        except SystemExit:
+            crashed = True
+        check(crashed, "train_resume: --fail-at did not stop the run")
+        resumed, resume_s = wall(lambda: train.main(argv + ck + ["--resume"]))
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    check(resumed == straight, f"train_resume: resumed {resumed!r} != straight {straight!r}")
+
+    with uncounted():
+        mcfg = smoke_config(cfg["arch"])
+        params, _ = init_all(mcfg, 0, device=device)
+        groups: dict = {}
+        for name, (path, _) in reference_layout(params, mcfg).items():
+            groups.setdefault(path, []).append(name)
+        groups = list(groups.values())
+        dc = DataConfig(vocab_size=mcfg.vocab_size, seq_len=cfg["seq_len"],
+                        global_batch=cfg["global_batch"])
+        ef_dev = ef_cpu = None
+        same = True
+        for i in range(cfg["hook_steps"]):
+            batch = {k: torch.from_numpy(v).to(device) for k, v in synth_batch(dc, i).items()}
+            _, _, grads = loss_and_grads(params, mcfg, batch, TrainSettings())
+            if ef_dev is None:
+                ef_dev = init_ef_state(grads)
+                ef_cpu = {k: v.cpu() for k, v in ef_dev.items()}
+            out_dev, ef_dev = compressed_mean_hook(grads, groups=groups, ef=ef_dev)
+            out_cpu, ef_cpu = compressed_mean_hook({k: v.cpu() for k, v in grads.items()},
+                                                   groups=groups, ef=ef_cpu)
+            same &= all(torch.equal(out_dev[k].cpu(), out_cpu[k])
+                        and torch.equal(ef_dev[k].cpu(), ef_cpu[k]) for k in out_cpu)
+        del params
+    check(same, "train_resume: compressed_mean_hook on the device differs from the CPU's")
+    out = dict(arch=mcfg.name, smoke=True, steps=cfg["steps"], seq_len=cfg["seq_len"],
+               global_batch=cfg["global_batch"], ckpt_every=cfg["ckpt_every"],
+               fail_at=cfg["fail_at"], final_loss_straight=straight, final_loss_resumed=resumed,
+               bitwise=resumed == straight, straight_seconds=straight_s,
+               resume_seconds=resume_s,
+               hook_ef_device_vs_cpu=dict(steps=cfg["hook_steps"], leaves=len(out_cpu),
+                                          bitwise=same))
+    emit("train_resume", **out)
+    return out
+
+
+def run_train(cfg: dict, device: str) -> dict:
+    """The training path, launch counts zeroed just before and read just
+    after (checks put theirs back): T1 ``train_full``, T2 ``train_resume``.
+    Returns its counts by kernel row and its flash launches a step."""
+    t0 = time.perf_counter()
+    zero_counts()
+    full = train_full(cfg["full"], device)
+    train_resume(cfg["resume"], device)
+    c = stream_counts()
+    counts = dict(frontier=0, frontier_pruned=0, frontier_wide=0, frontier_wide_pruned=0,
+                  distance=c["distance"], flash=c["flash"])
+    emit("train_path_launches", **counts, seconds=time.perf_counter() - t0)
+    check(c["frontier"] + c["frontier_pruned"] + c["frontier_wide"] + c["distance"] == 0,
+          f"a frontier or distance launch on the train path: {c}")
+    if device == "cuda":
+        check(counts["flash"] > 0, "kernel flash never launched on the train path")
+    return dict(counts=counts, per_pass=dict(train_step=full["flash_launches_per_step"]))
+
+
 def with_families(rows: list, fam: dict) -> list:
     """The ``kernels`` line's rows with each family phase's count under
     ``launches_by_path[phase]`` (``with_path``) and, on the flash and wide
     rows, its launches per pass."""
     per_row = {"flash_attention_fwd": (("prefill_forward", "prefill_forward"),
-                                       ("prefill_cache", "prefill_cache")),
+                                       ("prefill_cache", "prefill_cache"),
+                                       ("step", "train_step")),
                "frontier_scores[wide]": (("decode_step_knn", "decode_step_knn"),),
                "frontier_scores[wide,parent_prune]": (("decode_step_knn",
                                                        "decode_step_knn_pruned"),)}
@@ -3497,10 +3839,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fam = run_lm_families(LM_FAMILIES_FULL, "cuda")
+    gc.collect()               # every family's weights are gone
+    torch.cuda.empty_cache()
+    train = run_train(TRAIN_FULL, "cuda")
     narrow, narrow_pruned, scan = with_forest(index_rows, forest)
     kernels = with_families(with_path(with_path(
         [narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash], stream, "stream"),
-        serve, "serve"), fam)
+        serve, "serve"), {**fam, "train": train})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""The port's distributed-runtime pieces: so far the checkpoint format."""
+"""The port's distributed-runtime pieces: the checkpoint format and int8
+gradient compression."""

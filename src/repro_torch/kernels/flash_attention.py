@@ -16,12 +16,20 @@ masked logits are -1e30 and a row with no visible key writes zeros.
 ``flash_attention_fwd`` dispatches on the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel or raise.  On the
 card it refuses what the kernel does not take: head widths above 256,
-mixed dtypes, inputs that require grad (the backward, a recompute through
-the plain version as the reference's custom VJP does, comes with the
-training port) and causal ``sq > sk`` — rows that see no key there get a
+mixed dtypes and causal ``sq > sk`` — rows that see no key there get a
 value that depends on the TPU kernel's block size, and no model path asks
 for it (the LM's attention always has ``sq == sk``).
 ``flash_attention_fwd.launches`` counts kernel launches.
+
+Both devices go through one ``torch.autograd.Function``, the port of the
+reference's ``custom_vjp`` (``repro/kernels/ops.py:_pallas_attention``):
+its forward is the kernel (or, on the CPU, the plain version) on detached
+inputs, saving q, k and v; its backward recomputes the attention through
+``chunked_attention`` under autograd and returns that VJP, as
+``_pallas_attention_bwd`` does.  There is no backward kernel, here or in
+the reference.  Inputs that require grad on the card launch the forward
+kernel like any others; a non-reentrant activation checkpoint that
+recomputes the forward launches it again.
 """
 from __future__ import annotations
 
@@ -69,9 +77,6 @@ def _flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes f32 or bf16, one dtype for q, k, v; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the flash kernel has no backward yet; inputs must "
-                           "not require grad")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash kernel inputs must be contiguous")
     lib = _lib()
@@ -96,17 +101,44 @@ def _flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
     return out
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        scale: float | None = None):
-    """Attention forward: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns [b, h, sq, d] in q's dtype."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
+def _forward(q, k, v, causal: bool, scale: float):
     if q.device.type == "cuda":
         return _flash_attention_cuda(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=causal, scale=scale)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {q.device}")
     return flash_attention_torch(q, k, v, causal=causal, scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with the reference's recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _forward(q.detach(), k.detach(), v.detach(), causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(need)
+                       for t, need in zip(saved, ctx.needs_input_grad))
+            out = chunked_attention(q, k, v, causal=ctx.causal, scale=ctx.scale)
+            wrt = [t for t in (q, k, v) if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, g))
+        return (*(next(got) if t.requires_grad else None for t in (q, k, v)),
+                None, None)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        scale: float | None = None):
+    """Attention forward: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors; differentiable on both (the backward is the
+    plain version's VJP).  Returns [b, h, sq, d] in q's dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _FlashAttention.apply(q, k, v, causal, scale)
 
 
 flash_attention_fwd.launches = 0

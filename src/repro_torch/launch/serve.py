@@ -306,7 +306,7 @@ def main(argv=None):
                      "(socket replication follows single-tree engines)")
     if args.mesh == "host":
         ap.error("--mesh host needs the sharded decode (ROADMAP Queue 1 "
-                 "items 14-15): not ported yet")
+                 "items 17 and 15): not ported yet")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_encdec and args.prompt_len + args.steps > cfg.max_target_len:
         ap.error(f"--prompt-len + --steps = {args.prompt_len + args.steps} passes "

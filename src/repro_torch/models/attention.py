@@ -74,6 +74,14 @@ def _out_proj(p: Attention, out):
     return torch.einsum("bhse,hed->bsd", out, p.wo.to(out.dtype))
 
 
+def _repeat_kv(t, g: int):
+    """[b, KV, s, dh] -> [b, KV * g, s, dh], each head ``g`` times in a row
+    (``repeat_interleave``'s order) through a broadcast, whose backward is
+    a sum over the copies rather than an accumulating scatter."""
+    b, kv, s, dh = t.shape
+    return t[:, :, None].expand(b, kv, g, s, dh).reshape(b, kv * g, s, dh)
+
+
 def attn_apply(p: Attention, cfg, x, *, pos, attention=None):
     """Full-sequence causal attention.  x: [b, s, D]; pos: [b, s].
     ``attention`` replaces ``ops.attention`` (the plain version on the card,
@@ -81,8 +89,7 @@ def attn_apply(p: Attention, cfg, x, *, pos, attention=None):
     q, k, v = _project_qkv(p, cfg, x, pos)
     g = cfg.padded_heads // cfg.padded_kv_heads
     if g > 1:
-        k = k.repeat_interleave(g, dim=1)
-        v = v.repeat_interleave(g, dim=1)
+        k, v = _repeat_kv(k, g), _repeat_kv(v, g)
     out = (attention or ops.attention)(q, k, v, causal=True)
     return _out_proj(p, _head_mask(cfg, out))
 

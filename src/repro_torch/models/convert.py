@@ -13,6 +13,15 @@ recurrence and norms) stay float32.  bfloat16 leaves (``ml_dtypes``, known here 
 through their 16-bit patterns, as ``dist/checkpoint.py`` reads them.  Like
 every entry point of the port, it puts the weights on the card unless the
 caller passes ``device="cpu"``.
+
+The other way, ``reference_layout`` gives each named parameter of the
+port's model its key path in the reference's tree and its index along the
+stacked period axis, and ``to_reference_tree`` / ``from_reference_tree``
+stack any values keyed by parameter name (the weights, their gradients,
+the optimizer's moments) into that tree and take them out again.
+``params_to_tree`` is the inverse of ``params_from_jax``.  Training keys
+its weight decay by these paths and writes its checkpoints in this tree,
+so a checkpoint is the reference's leaf for leaf.
 """
 from __future__ import annotations
 
@@ -103,3 +112,90 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, *, device=None):
         t(params_np["embed"]), norm(params_np["final_norm"]), blocks,
         dense(params_np["lm_head"]) if "lm_head" in params_np else None,
         t(params_np["pos_embed"]) if "pos_embed" in params_np else None)
+
+
+# the reference's key of a block's mixer, by block kind
+_MIXER_KEY = {"attn": "attn", "attn_moe": "attn", "mamba": "mamba", "mamba_moe": "mamba",
+              "mlstm": "mlstm", "slstm": "slstm"}
+
+
+def reference_layout(params, cfg: ArchConfig) -> dict:
+    """{parameter name: (key path in the reference's tree, index along its
+    stacked period axis or None)} for every named parameter of ``params``
+    (a ``transformer.LM`` or an ``encdec.EncDec``).  A path holds dict keys
+    and, under ``blocks``, the position ``j`` in the block pattern."""
+    n = len(cfg.block_pattern)
+    out = {}
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] in ("enc_blocks", "dec_blocks"):
+            out[name] = ((parts[0], *parts[2:]), int(parts[1]))
+        elif parts[0] == "blocks":
+            layer = int(parts[1])
+            kind = cfg.block_pattern[layer % n]
+            key = {"mixer": _MIXER_KEY[kind],
+                   "ffn": "moe" if kind.endswith("_moe") else "ffn"}.get(parts[2], parts[2])
+            out[name] = (("blocks", layer % n, key, *parts[3:]), layer // n)
+        else:
+            out[name] = (tuple(parts), None)
+    return out
+
+
+def path_str(path: tuple) -> str:
+    """A key path as the reference's optimizer spells it: its keys and
+    list positions joined by ``/`` (``blocks/0/attn/bq``)."""
+    return "/".join(str(k) for k in path)
+
+
+def _lists(node):
+    """Nested dicts with the int keys of the block pattern turned into lists."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return [_lists(node[j]) for j in range(len(node))]
+    return {k: _lists(v) for k, v in node.items()}
+
+
+def to_reference_tree(values: dict, layout: dict, *, device=None):
+    """``values`` ({parameter name: tensor}) as the reference's tree: nested
+    dicts, ``blocks`` a list by pattern position, each stacked leaf the
+    periods' tensors stacked on a new axis 0.  Leaves are detached and, with
+    ``device``, moved there first (the CPU, to stack a large model's state
+    off the card)."""
+    root: dict = {}
+    stacks: dict = {}
+    for name, (path, idx) in layout.items():
+        t = values[name].detach()
+        t = t if device is None else t.to(device)
+        if idx is None:
+            node = root
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t
+        else:
+            stacks.setdefault(path, {})[idx] = t
+    for path, by_idx in stacks.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.stack([by_idx[i] for i in range(len(by_idx))])
+    return _lists(root)
+
+
+def from_reference_tree(tree, layout: dict) -> dict:
+    """The inverse of ``to_reference_tree``: {parameter name: its tensor},
+    a stacked leaf's slice (a view) for a stacked parameter."""
+    out = {}
+    for name, (path, idx) in layout.items():
+        node = tree
+        for k in path:
+            node = node[k]
+        out[name] = node if idx is None else node[idx]
+    return out
+
+
+def params_to_tree(params, cfg: ArchConfig, *, device=None):
+    """The port's model as the reference's parameter tree (tensors): the
+    inverse of ``params_from_jax``."""
+    return to_reference_tree(dict(params.named_parameters()),
+                             reference_layout(params, cfg), device=device)

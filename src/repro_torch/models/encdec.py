@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -111,21 +112,31 @@ def encode(params: EncDec, cfg: ArchConfig, frames, *, _attention=None):
     return params.enc_norm(x)
 
 
-def encdec_forward(params: EncDec, cfg: ArchConfig, batch: dict, *, _attention=None):
+def encdec_forward(params: EncDec, cfg: ArchConfig, batch: dict, *, remat: bool = False,
+                   _attention=None):
     """batch: {frames [b, s_enc, D], tokens [b, s_dec]} -> (logits [b, s_dec,
-    V], aux: zeros, the LM's keys)."""
+    V], aux: zeros, the LM's keys).  With ``remat`` while autograd records,
+    each decoder block is one activation checkpoint (the encoder is not
+    checkpointed), as in the reference."""
     mem = encode(params, cfg, batch["frames"], _attention=_attention)
     tok = torch.as_tensor(batch["tokens"], device=mem.device).long()
     s = tok.shape[1]
     x = params.embed[tok].to(mem.dtype) + params.dec_pos[:s].to(mem.dtype)
-    for blk in params.dec_blocks:
+
+    def block(x, blk):
         h = blk.norm1(x)
         with _span("attn"):
             x = x + _attend(blk.attn, h, h, True, _attention)
         with _span("xattn"):
             x = x + _attend(blk.xattn, blk.normx(x), mem, False, _attention)
         with _span("mlp"):
-            x = x + blk.ffn(blk.norm2(x))
+            return x + blk.ffn(blk.norm2(x))
+
+    for blk in params.dec_blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, blk, use_reentrant=False)
+        else:
+            x = block(x, blk)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return params.head(params.final_norm(x)), {k: zero for k in
                                                 ("lb_loss", "z_loss", "drop_frac")}

@@ -26,7 +26,8 @@ def truncated_normal(shape, scale: float, dtype, *, generator: torch.Generator,
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
-    # the serving slice runs no backward: parameters never require grad
+    # parameters are made frozen, as serving wants them; training turns
+    # every one on with ``models.model.trainable``
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -3,7 +3,8 @@
 reference does: decoder LMs (every block family) through
 ``models/transformer.py``, the encoder-decoder (whisper) through
 ``models/encdec.py``.  Entry points run on the card unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``.  Parameters are made frozen (serving runs no
+backward); ``trainable`` turns them on for training.
 """
 from __future__ import annotations
 
@@ -25,13 +26,25 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None):
     return transformer.init_lm(cfg, gen, dev)
 
 
-def forward(params, cfg: ArchConfig, batch: dict, *, _attention=None, _routing=None):
+def trainable(params):
+    """Every parameter of an ``LM`` or ``EncDec`` set to require grad (in
+    place); returns ``params``."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
+
+
+def forward(params, cfg: ArchConfig, batch: dict, *, remat: bool = False,
+            _attention=None, _routing=None):
     """Full-sequence forward -> (logits, aux).  An enc-dec batch is
-    ``{"frames", "tokens"}``."""
+    ``{"frames", "tokens"}``.  ``remat`` checkpoints activations by period
+    of the block pattern (the enc-dec: by decoder block) while autograd
+    records, as the reference's ``jax.checkpoint`` does."""
     if cfg.is_encdec:
-        return encdec.encdec_forward(params, cfg, batch, _attention=_attention)
-    return transformer.lm_forward(params, cfg, batch, _attention=_attention,
-                                  _routing=_routing)
+        return encdec.encdec_forward(params, cfg, batch, remat=remat,
+                                     _attention=_attention)
+    return transformer.lm_forward(params, cfg, batch, remat=remat,
+                                  _attention=_attention, _routing=_routing)
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, dtype=None, *,
@@ -51,6 +64,21 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos_scalar: int, *,
         return encdec.encdec_decode_step(params, cfg, token, cache, int(pos_scalar))
     return transformer.lm_decode_step(params, cfg, token, cache, int(pos_scalar),
                                       _routing=_routing)
+
+
+def loss_fn(logits, labels, mask):
+    """Mean next-token cross-entropy (labels already shifted), in float32.
+    The gold logit is picked by comparing an iota with the labels and a
+    masked sum, as in the reference, not by a gather, so the backward is
+    elementwise rather than a scatter."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    labels = torch.as_tensor(labels, device=lf.device)
+    mask = torch.as_tensor(mask, device=lf.device)
+    hit = torch.arange(lf.shape[-1], device=lf.device) == labels[..., None].long()
+    gold = torch.where(hit, lf, 0.0).sum(-1)
+    nll = (lse - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1)
 
 
 def param_count(params) -> int:

@@ -11,7 +11,7 @@ makes it dropless.
 The reference has no Pallas kernel here: its expert products are plain
 XLA ``einsum``s, so the port's are ``torch.bmm``.  Its expert-parallel
 form (``moe_apply_ep``: an ``all_to_all`` over the mesh's data axis) needs
-a process group and waits for ROADMAP Queue 1 item 14; without a mesh the
+a process group and waits for ROADMAP Queue 1 item 17; without a mesh the
 reference means ``moe_apply`` itself, which is what the port computes for
 ``cfg.moe_ep`` (the reference's own call recurses without end there).
 """

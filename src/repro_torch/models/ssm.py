@@ -69,13 +69,21 @@ def _ssm_params(p: Mamba, cfg, xc):
 
 
 def _scan_chunk(a, u):
-    """Inclusive scan of ``h' = a * h + u`` along axis 1 from h = 0, in
-    place of ``a`` and ``u``; returns (cumulative a, h).  Step d combines
-    each position with the one d before it: (a_l * a, a * u_l + u)."""
+    """Inclusive scan of ``h' = a * h + u`` along axis 1 from h = 0; returns
+    (cumulative a, h).  Step d combines each position with the one d before
+    it: (a_l * a, a * u_l + u).  In place of ``a`` and ``u``, unless
+    autograd records them: the backward needs the values each step read,
+    so then every step makes new tensors (the same numbers, and a copy of
+    the whole chunk more a step, which serving does not pay)."""
+    inplace = not (torch.is_grad_enabled() and (a.requires_grad or u.requires_grad))
     L, d = a.shape[1], 1
     while d < L:
-        u[:, d:] += a[:, d:] * u[:, :-d]
-        a[:, d:] = a[:, d:] * a[:, :-d]
+        if inplace:
+            u[:, d:] += a[:, d:] * u[:, :-d]
+            a[:, d:] = a[:, d:] * a[:, :-d]
+        else:
+            u = torch.cat([u[:, :d], u[:, d:] + a[:, d:] * u[:, :-d]], dim=1)
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return a, u
 

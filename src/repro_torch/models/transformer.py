@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -180,16 +181,34 @@ def embed_inputs(params: LM, cfg: ArchConfig, batch: dict):
     return x, pos
 
 
-def _trunk(params: LM, cfg: ArchConfig, batch: dict, attention, routing):
+def _trunk(params: LM, cfg: ArchConfig, batch: dict, attention, routing,
+           remat: bool = False):
     """-> (final-normed hidden states [b, s, D], aux sums [3] over the MoE
-    layers, in ``AUX_KEYS`` order)."""
+    layers, in ``AUX_KEYS`` order).  The layers run period by period of
+    ``cfg.block_pattern``, each period's aux summed apart and the periods'
+    sums added at the end (the reference's scan); with ``remat`` while
+    autograd records, each period is one activation checkpoint, recomputed
+    in the backward (the reference's ``jax.checkpoint(period_fn)``)."""
     x, pos = embed_inputs(params, cfg, batch)
-    sums = torch.zeros((3,), dtype=torch.float32, device=x.device)
-    for blk in params.blocks:
-        x, aux = blk(cfg, x, pos, attention, routing)
-        if aux is not None:
-            sums = sums + torch.stack([aux[k] for k in AUX_KEYS])
-    return params.final_norm(x), sums
+    n = len(cfg.block_pattern)
+
+    def period(x, blocks):
+        sums = torch.zeros((3,), dtype=torch.float32, device=x.device)
+        for blk in blocks:
+            x, aux = blk(cfg, x, pos, attention, routing)
+            if aux is not None:
+                sums = sums + torch.stack([aux[k] for k in AUX_KEYS])
+        return x, sums
+
+    per_period = []
+    for p in range(cfg.n_periods):
+        blocks = params.blocks[p * n:(p + 1) * n]
+        if remat and torch.is_grad_enabled():
+            x, sums = checkpoint(period, x, blocks, use_reentrant=False)
+        else:
+            x, sums = period(x, blocks)
+        per_period.append(sums)
+    return params.final_norm(x), torch.stack(per_period).sum(0)
 
 
 def hidden_states(params: LM, cfg: ArchConfig, batch: dict, *, _attention=None):
@@ -197,15 +216,16 @@ def hidden_states(params: LM, cfg: ArchConfig, batch: dict, *, _attention=None):
     return _trunk(params, cfg, batch, _attention, None)[0]
 
 
-def lm_forward(params: LM, cfg: ArchConfig, batch: dict, *, _attention=None,
-               _routing=None):
+def lm_forward(params: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
+               _attention=None, _routing=None):
     """Full-sequence forward.  Returns (logits [b, s, V], aux dict): the
     MoE layers' aux summed and divided by ``max(1, n_moe * n_periods)``
-    (zeros without MoE layers).  ``_attention`` (private) replaces the
-    attention entry point, so a caller can run the plain version on the
-    card and compare; ``_routing`` (private) collects each MoE layer's
-    routing (models/moe.py)."""
-    x, sums = _trunk(params, cfg, batch, _attention, _routing)
+    (zeros without MoE layers).  ``remat`` checkpoints each period
+    (``_trunk``).  ``_attention`` (private) replaces the attention entry
+    point, so a caller can run the plain version on the card and compare;
+    ``_routing`` (private) collects each MoE layer's routing
+    (models/moe.py), once more for each period that remat recomputes."""
+    x, sums = _trunk(params, cfg, batch, _attention, _routing, remat)
     n_moe = sum(1 for k in cfg.block_pattern if k.endswith("_moe"))
     sums = sums / max(1, n_moe * cfg.n_periods)
     return params.head(x), dict(zip(AUX_KEYS, sums.unbind()))

@@ -79,11 +79,11 @@ def _stabiliser(log_f, log_i, m0):
     log_f/log_i: [b, s, H]; m0: [b, H] -> m [b, s, H].  The reference's
     combine ``(a1 + a2, max(b1 + a2, b2))`` in log2(s) passes: pass d
     combines each step with the one d before it."""
-    A, B = log_f.clone(), log_i.clone()
+    A, B = log_f, log_i
     s, d = A.shape[1], 1
-    while d < s:
-        B[:, d:] = torch.maximum(B[:, :-d] + A[:, d:], B[:, d:])
-        A[:, d:] = A[:, :-d] + A[:, d:]
+    while d < s:                # new tensors each pass: autograd keeps what it read
+        B = torch.cat([B[:, :d], torch.maximum(B[:, :-d] + A[:, d:], B[:, d:])], dim=1)
+        A = torch.cat([A[:, :d], A[:, :-d] + A[:, d:]], dim=1)
         d *= 2
     return torch.maximum(m0[:, None] + A, B)
 

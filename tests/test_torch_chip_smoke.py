@@ -496,3 +496,81 @@ def test_xlstm_and_audio_phases_pin_their_full_sizes():
     cross_ms, _ = chip_smoke.flash_bound((2 * 448 + 2 * 1500) * 16 * 6 * 64 * 4,
                                          4.0 * 16 * 6 * 64 * 448 * 1500, "float32")
     assert abs(cross_ms - 0.100) < 0.001
+
+
+TRAIN_TINY = dict(      # full["params"]: filled in from the reference's exact count
+    full=dict(arch="qwen2.5-3b", smoke=True, params=None, b=2, s=16, timed_steps=2,
+              opt=dict(lr=3e-4, warmup_steps=2, total_steps=100), loss_rtol=1e-4,
+              gnorm_rtol=1e-3, attn_tol=2e-4, reduced=[]),
+    resume=dict(arch="qwen2.5-3b", steps=6, seq_len=16, global_batch=2, ckpt_every=2,
+                fail_at=3, hook_steps=2))
+
+
+def test_train_path_rehearses_on_the_cpu():
+    """``run_train``: T1 on qwen2.5-3b's smoke model (the checks, the
+    steps, the profiled step's phases and blocks) and T2's kill/resume
+    through ``launch/train.main`` and the hook's device-vs-CPU check."""
+    import copy
+
+    from repro.configs.all_archs import smoke_config
+    from repro.models.model import exact_param_count
+    cfg = copy.deepcopy(TRAIN_TINY)
+    cfg["full"]["params"] = exact_param_count(smoke_config("qwen2.5-3b"))
+    phases, train, full, resume, launches = _rehearse(
+        f"run_train({cfg!r}, 'cpu')", keep=("train_full", "train_resume", "train_path_launches"))
+    assert phases == ["train_full", "train_resume", "train_path_launches"]
+    assert full["params"] == cfg["full"]["params"] and full["remat"] and full["tied"]
+    assert (full["b"], full["s"]) == (2, 16) and len(full["step_ms"]) == 2
+    assert len(full["losses"]) == len(full["grad_norms"]) == 4       # warm, 2 timed, profiled
+    assert all(g > 0 for g in full["grad_norms"]) and full["tokens_per_s"] > 0
+    ch = full["checks"]
+    assert ch["grad_norm_bitwise_twice"] and ch["loss_kernel"] == ch["loss_plain"]
+    # every layer's attention held element by element, at the step's shape
+    mcfg = smoke_config("qwen2.5-3b")
+    assert ch["attention_shape"] == [2, mcfg.n_heads, 16, mcfg.d_head]
+    assert ch["attention_max_abs_err_by_layer"] == [0.0] * mcfg.n_layers
+    assert ch["attention_tol"] == 2e-4
+    prof = full["profile"]["phases"]
+    assert set(prof) == {"forward", "backward", "optimizer"}
+    # the blocks run once in the forward and again in remat's recompute
+    assert {k: v["calls"] for k, v in prof["forward"]["blocks"].items()} == {"attn": 2, "mlp": 2}
+    assert {k: v["calls"] for k, v in prof["backward"]["blocks"].items()} == {"attn": 2, "mlp": 2}
+    assert prof["optimizer"]["blocks"] == {}
+    assert resume["bitwise"] and resume["final_loss_resumed"] == resume["final_loss_straight"]
+    # 26 parameters (12 a layer, the embedding, the final norm): 14 reference leaves
+    assert resume["hook_ef_device_vs_cpu"] == dict(steps=2, leaves=26, bitwise=True)
+    assert set(train["counts"]) == {"frontier", "frontier_pruned", "frontier_wide",
+                                    "frontier_wide_pruned", "distance", "flash"}
+    assert train["per_pass"] == {"train_step": 0.0}          # counted on the card only
+    assert launches["seconds"] > 0
+
+
+def test_train_counts_join_the_rows():
+    """The train path's counts under ``launches_by_path.train`` on every
+    row; the flash row gains its launches a step."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = [dict(name=n, launches=c, launches_per_pass={"p": c}) for n, c in
+            (("frontier_scores[wide]", 46), ("pairwise_distance", 3),
+             ("flash_attention_fwd", 468))]
+    counts = dict(frontier=0, frontier_pruned=0, frontier_wide=0, frontier_wide_pruned=0,
+                  distance=0, flash=456)
+    w, d, f = chip_smoke.with_families(rows, {"train": dict(counts=counts,
+                                                            per_pass=dict(train_step=72.0))})
+    assert f["launches_by_path"] == {"lm": 468, "train": 456}
+    assert f["launches_per_pass"] == {"p": 468, "train:step": 72.0}
+    assert w["launches_by_path"] == {"lm": 46, "train": 0}
+    assert d["launches_by_path"] == {"lm": 3, "train": 0}
+
+
+def test_train_path_pins_its_full_size():
+    """T1 runs qwen2.5-3b at full width and depth (its exact parameter
+    count) at b=2 x 2048; T2 is the reference's kill/resume contract."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    full, resume = chip_smoke.TRAIN_FULL["full"], chip_smoke.TRAIN_FULL["resume"]
+    assert (full["arch"], full["smoke"], full["params"]) == ("qwen2.5-3b", False, 3_085_938_688)
+    assert (full["b"], full["s"], full["timed_steps"]) == (2, 2048, 3)
+    assert full["attn_tol"] == 2e-4                  # phase 8's f32 tolerance
+    assert (resume["steps"], resume["ckpt_every"], resume["fail_at"]) == (24, 8, 13)
+    assert (resume["seq_len"], resume["global_batch"]) == (32, 4)

@@ -593,8 +593,6 @@ def test_flash_kernel_non_causal_longer_queries_and_refusals(cuda):
     before = flash_attention_fwd.launches
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k, v, causal=True)            # causal sq > sk
-    with pytest.raises(RuntimeError):
-        flash_attention_fwd(q.requires_grad_(), k, v, causal=False)
     q2, k2, v2 = _qkv(rng, cuda, 1, 2, 2, 8, 8, 264, torch.float32)
     with pytest.raises(ValueError):
         flash_attention_fwd(q2, k2, v2)                       # d > 256
@@ -602,6 +600,9 @@ def test_flash_kernel_non_causal_longer_queries_and_refusals(cuda):
         flash_attention_fwd(q2[..., :64].contiguous(), k2[..., :64].contiguous().half(),
                             v2[..., :64].contiguous())
     assert flash_attention_fwd.launches == before
+    # inputs that require grad launch the kernel like any others
+    out = flash_attention_fwd(q.requires_grad_(), k, v, causal=False)
+    assert flash_attention_fwd.launches == before + 1 and out.requires_grad
 
 
 @pytest.mark.parametrize("metric", ["d_inf", "sqeuclidean", "ip"])
@@ -754,3 +755,62 @@ def test_family_forward_and_decode_on_card_match_cpu(cuda, arch):
         w, c_cpu = M.decode_step(cpu, cfg, toks[:, pos], c_cpu, pos)
         g, c_card = M.decode_step(card, cfg, toks[:, pos].to(cuda), c_card, pos)
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+# ---- training: the flash Function's backward and the train step -----------
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,hk,sq,sk,d,causal", [
+    (1, 16, 16, 2048, 2048, 128, True),     # qwen2.5-3b's heads (K/V repeated), b cut
+    (1, 16, 2, 512, 1024, 128, True),       # GQA, sq < sk
+    (2, 4, 4, 100, 300, 64, False)])
+def test_flash_function_grads_on_card_match_plain(cuda, b, h, hk, sq, sk, d, causal, dtype,
+                                                  tol):
+    """The forward launches the kernel (within ``tol`` of the plain
+    version); the backward recomputes through the plain version, so q, k
+    and v's gradients are the plain version's VJP on the card, bitwise."""
+    from repro_torch.kernels.attention_plain import chunked_attention
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = _qkv(rng, cuda, b, h, hk, sq, sk, d, dtype)
+    g = torch.from_numpy(rng.normal(size=(b, h, sq, d)).astype(np.float32)).to(cuda, dtype)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention_fwd.launches
+    out = flash_attention_fwd(*a, causal=causal)
+    assert flash_attention_fwd.launches == before + 1
+    out.backward(g)
+    assert flash_attention_fwd.launches == before + 1      # no kernel in the backward
+    p = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = chunked_attention(*p, causal=causal)
+    want.backward(g)
+    torch.testing.assert_close(out.detach().float(), want.detach().float(), rtol=tol, atol=tol)
+    for x, y in zip(a, p):
+        assert x.grad.dtype == dtype and torch.equal(x.grad, y.grad)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One step of the smoke qwen2.5-3b from the same weights on the card
+    and on the CPU: 4 flash launches (2 layers, the forward and remat's
+    recompute), loss within 1e-4 and grad_norm within 1e-3 (relative), the
+    first moments within 1e-3 of each one's largest value."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import TrainSettings, make_train_step
+    cfg = smoke_config("qwen2.5-3b")
+    cpu = M.trainable(M.init_params(cfg, 0, device="cpu"))
+    card = M.trainable(M.init_params(cfg, 0, device="cpu").to(cuda))
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4), 0)
+    step = make_train_step(cfg, TrainSettings())
+    out = {}
+    for name, params, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        before = flash_attention_fwd.launches
+        _, opt, m = step(params, init_opt_state(params),
+                         {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[name] = (opt, m, flash_attention_fwd.launches - before)
+    (opt_c, m_c, n_c), (opt_g, m_g, n_g) = out["cpu"], out["card"]
+    assert n_c == 0 and n_g == 2 * cfg.n_layers
+    assert abs(float(m_g["loss"]) - float(m_c["loss"])) <= 1e-4 * abs(float(m_c["loss"]))
+    assert abs(float(m_g["grad_norm"]) - float(m_c["grad_norm"])) <= 1e-3 * float(m_c["grad_norm"])
+    for k, mu in opt_c.mu.items():
+        err = float((opt_g.mu[k].cpu() - mu).abs().max())
+        assert err <= 1e-3 * float(mu.abs().max()), k
