@@ -257,13 +257,30 @@ put back by ``uncounted()``:
       ``compressed_mean_hook`` with error feedback over 3 batches of the
       smoke model's gradients, on the card and on the CPU, bitwise.
 
+The mesh path (``run_mesh``), after the training path, on a process group
+of one rank (NCCL; ``file://`` init in a temporary directory) and a (1, 1)
+{data, model} mesh, counted under ``launches_by_path.mesh`` (one card:
+NCCL across ranks is not exercised):
+
+  M1. train_sharded: T1's model, seed, batches and optimizer through the
+      mesh form of ``make_train_step`` (the rule table, ``ShardedLM``,
+      ZeRO-1 moments), as many steps as T1: every loss and grad_norm
+      bitwise T1's; ms a step, tokens/s, peak memory, the profiled step's
+      idle share, 72 flash launches a step;
+  M2. serve_sharded: ``launch/serve.serve_sharded`` with ``--knn`` (the
+      mesh store) at qwen2.5-3b full width, b=4: its tokens bitwise
+      lm_serve's (phase 10); ms a decode step and wide frontier launches a
+      step; then the mesh decode step's logits at every one of its 48
+      positions, fed seeded random tokens, bitwise the one-device decode
+      step's on the same weights and inputs.
+
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
 library ms; ``launches_by_path`` gives every path's count apart: ``index``
 and ``forest`` for the narrow rows and the scan, ``lm``, ``lm_moe``,
 ``lm_hybrid``, ``lm_xlstm`` and ``lm_audio`` for the LM rows, and
-``stream``, ``serve`` and ``train`` for all; the
+``stream``, ``serve``, ``train`` and ``mesh`` for all; the
 distance scan at the index path's shape, with
 its device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -351,6 +368,14 @@ TRAIN_FULL = dict(
               loss_rtol=1e-4, gnorm_rtol=1e-3, attn_tol=2e-4, reduced=[]),
     resume=dict(arch="qwen2.5-3b", steps=24, seq_len=32, global_batch=4, ckpt_every=8,
                 fail_at=13, hook_steps=3))
+# the mesh path (run_mesh) on a one-rank process group: M1 T1's model,
+# batches and optimizer through the mesh form of make_train_step (every
+# step of T1's, held bitwise); M2 serve_sharded with lm_serve's argv (b=4,
+# prompt 32, 16 steps), its tokens held bitwise to lm_serve's, and the mesh
+# decode step's logits held bitwise to the one-device decode step's
+MESH_FULL = dict(train=dict(arch="qwen2.5-3b", smoke=False, b=2, s=2048,
+                            opt=dict(lr=3e-4, warmup_steps=2, total_steps=100)),
+                 serve_argv=["--knn"])
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
 H100_TF32_FLOP_PER_S = 495e12     # tensor cores, dense (H100 SXM data sheet)
@@ -1946,7 +1971,7 @@ def run_lm(cfg: dict, device: str):
          retrieval=bret)
     ctx = dict(params=params, mcfg=mcfg, store=s1_store, Q=Q, V=V, n_ev=n_ev,
                evicted_live=want_live, add_keys=add_keys,
-               add_vals=add_vals, lm_ms_per_step=timing["ms_per_step"])
+               add_vals=add_vals, lm_ms_per_step=timing["ms_per_step"], lm_toks=toks)
     del store, keys, batched, beng
     free()
 
@@ -3621,7 +3646,7 @@ def train_full(cfg: dict, device: str) -> dict:
               f"train_full: {per_fwd_bwd} flash launches a forward and backward, not {2 * n_attn}")
 
     # the path: a warm step, timed steps, a profiled step
-    step_fn = make_train_step(mcfg, settings)
+    step_fn = make_train_step(mcfg, settings=settings)
     state = {"opt": opt}
     history = []
 
@@ -3761,7 +3786,195 @@ def run_train(cfg: dict, device: str) -> dict:
           f"a frontier or distance launch on the train path: {c}")
     if device == "cuda":
         check(counts["flash"] > 0, "kernel flash never launched on the train path")
-    return dict(counts=counts, per_pass=dict(train_step=full["flash_launches_per_step"]))
+    return dict(counts=counts, per_pass=dict(train_step=full["flash_launches_per_step"]),
+                t1={k: full[k] for k in ("losses", "grad_norms", "mean_step_ms", "peak_gb",
+                                          "flash_launches_per_step")})
+
+
+def train_sharded(cfg: dict, device: str, mesh, t1: dict) -> dict:
+    """M1 ``train_sharded``: T1's model (seeded random weights), batches
+    (``synth_batch`` steps 0, 1, ...) and optimizer through
+    ``make_train_step(cfg, mesh, ...)`` on the one-rank mesh: as many steps
+    as T1 ran (a warm one, timed ones, a profiled one), every loss and
+    grad_norm bitwise T1's, flash launches a step (the forward's and
+    remat's recompute's), peak memory, the profiled step's idle share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainSettings, init_sharded, make_train_step
+
+    on_card = device == "cuda"
+    _, _, wall = timers(on_card)
+    mcfg = smoke_config(cfg["arch"]) if cfg["smoke"] else get_config(cfg["arch"])
+    n_attn = sum(k.startswith("attn") for k in mcfg.block_pattern) * mcfg.n_periods
+    B, S = cfg["b"], cfg["s"]
+    n_steps = len(t1["losses"])
+    dc = DataConfig(vocab_size=mcfg.vocab_size, seq_len=S, global_batch=B)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in synth_batch(dc, i).items()}
+               for i in range(n_steps)]
+    settings = TrainSettings(opt=AdamWConfig(**cfg["opt"]))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    (params, opt), init_s = wall(lambda: init_sharded(mcfg, mesh, 0, device=device))
+    step_fn, _ = make_train_step(mcfg, mesh, batches[0], settings)
+    state = {"opt": opt}
+    history = []
+
+    def step(i):
+        _, state["opt"], m = step_fn(params, state["opt"], batches[i])
+        history.append(m)
+
+    c0 = stream_counts()["flash"]
+    _, warm_s = wall(lambda: step(0))
+    timed = [wall(lambda i=i: step(i))[1] for i in range(1, n_steps - 1)]
+    step_ms = float(np.mean(timed)) * 1e3
+    where, profile_s = wall(lambda: profile_train(lambda: step(n_steps - 1), step_ms, on_card))
+    where["seconds"] = profile_s
+    flash_per_step = (stream_counts()["flash"] - c0) / n_steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    losses = [float(m["loss"]) for m in history]
+    gnorms = [float(m["grad_norm"]) for m in history]
+    check(losses == t1["losses"] and gnorms == t1["grad_norms"],
+          f"train_sharded: losses {losses} / grad_norms {gnorms} are not T1's "
+          f"{t1['losses']} / {t1['grad_norms']}")
+    if on_card:
+        check(flash_per_step == 2 * n_attn,
+              f"train_sharded: {flash_per_step} flash launches a step, not {2 * n_attn}")
+    out = dict(arch=mcfg.name, mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               backend=torch.distributed.get_backend(), b=B, s=S, steps=n_steps,
+               init_seconds=init_s, warm_step_ms=warm_s * 1e3, step_ms=[t * 1e3 for t in timed],
+               mean_step_ms=step_ms, t1_mean_step_ms=t1["mean_step_ms"],
+               tokens_per_s=B * S / (step_ms / 1e3), peak_gb=peak_gb, t1_peak_gb=t1["peak_gb"],
+               flash_launches_per_step=flash_per_step, losses=losses, grad_norms=gnorms,
+               bitwise_t1=True, profile=where)
+    del params, state, opt, batches, history
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    emit("train_sharded", **out)
+    return out
+
+
+def serve_sharded_phase(cfg: dict, device: str, mesh, lm_toks) -> dict:
+    """M2 ``serve_sharded``: ``launch/serve.serve_sharded`` with
+    ``--knn`` on the one-rank mesh (qwen2.5-3b, seeded weights, the mesh
+    store), its tokens bitwise lm_serve's (the single-device ``launch/serve
+    --knn`` on the same prompt and steps); ms a decode step and the wide
+    frontier launches a step."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve
+    args = serve.parser().parse_args(cfg["serve_argv"] + ["--device", device])
+    mcfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    c0 = stream_counts()
+    toks, store, timing = serve.serve_sharded(args, mcfg, mesh)
+    c = {k: v - c0[k] for k, v in stream_counts().items()}
+    check(np.array_equal(toks, lm_toks),
+          f"serve_sharded: tokens {toks[0][:12]} are not lm_serve's {lm_toks[0][:12]}")
+    out = dict(arch=mcfg.name, mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               batch=args.batch, prompt_len=args.prompt_len, steps=args.steps,
+               store_keys=len(store.values), ms_per_decode_step=timing["ms_per_step"],
+               prompt_feed_ms_per_token=timing["prefill_s"] * 1e3 / args.prompt_len,
+               tokens_bitwise_lm_serve=True, sample=toks[0][:12].tolist(),
+               wide_frontier_launches_per_step=c["frontier_wide"] / args.steps,
+               frontier_launches_per_step=(c["frontier"] + c["frontier_pruned"]) / args.steps,
+               pruned_launches_per_step=c["frontier_pruned"] / args.steps)
+    emit("serve_sharded", **out)
+    return out
+
+
+def sharded_decode_logits(cfg: dict, device: str, mesh) -> dict:
+    """M2's logits check: the mesh builder's decode step (``ShardedLM.
+    decode_step`` on the one-rank mesh) against the one-device
+    ``M.decode_step`` on the same weights and inputs, every step's logits
+    bitwise (one rank: every collective an identity).  The tokens fed are
+    seeded random ones, one a step, not the model's greedy ones, which a
+    random model repeats: every position's key and value then differ, so a
+    cache written or read at the wrong position shows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.parallel import ShardedLM
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import make_decode_step
+    args = serve.parser().parse_args(cfg["serve_argv"] + ["--device", device])
+    mcfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    n = args.prompt_len + args.steps
+    model = M.init_params(mcfg, 0, device=device)
+    sharded = ShardedLM.from_model(model, mcfg, mesh)
+    fn, sh = make_decode_step(mcfg, mesh, ShapeSpec("serve", n, args.batch, "decode"))
+    cache = sharded.init_cache(args.batch, n, sh["cache"])
+    one = M.init_cache(mcfg, args.batch, n, device=device)
+    fed = torch.from_numpy(np.random.default_rng(9).integers(
+        0, mcfg.vocab_size, (args.batch, n)).astype(np.int32)).to(device)
+    err, argmax_equal = 0.0, True
+    with torch.no_grad():
+        for pos in range(n):
+            tok, got, cache = fn(sharded, fed[:, pos], cache, pos)
+            want, one = M.decode_step(model, mcfg, fed[:, pos], one, pos)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            argmax_equal &= bool(torch.equal(tok, want.argmax(-1).to(torch.int32)))
+    check(err == 0.0 and argmax_equal,
+          f"sharded decode: logits {err} from the one-device decode's (tolerance 0)")
+    out = dict(arch=mcfg.name, batch=args.batch, positions=n, max_abs_err=err,
+               tolerance=0.0, cache_positions_a_rank=int(cache[0]["kv"][0].shape[2]),
+               distinct_tokens_fed=int(torch.unique(fed).numel()))
+    emit("serve_sharded_logits", **out)
+    del model, sharded, cache, one
+    gc.collect()
+    return out
+
+
+def run_mesh(cfg: dict, device: str, t1: dict, lm_toks) -> dict:
+    """The mesh path on a process group of one rank (NCCL on the card,
+    gloo on the CPU; ``file://`` init in a temporary directory, destroyed
+    at the end) and a (1, 1) {data, model} mesh, launch counts zeroed just
+    before and read just after: M1 ``train_sharded``, M2
+    ``serve_sharded``; then M2's logits check (``sharded_decode_logits``,
+    which launches no kernel).  Returns its counts by kernel row and its
+    launches a pass."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{root}/rendezvous", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=device)
+        zero_counts()
+        m1 = train_sharded(cfg["train"], device, mesh, t1)
+        m2 = serve_sharded_phase(cfg, device, mesh, lm_toks)
+        c = stream_counts()
+        sharded_decode_logits(cfg, device, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    counts = dict(frontier=0, frontier_pruned=0, frontier_wide=c["frontier"],
+                  frontier_wide_pruned=c["frontier_pruned"], distance=c["distance"],
+                  flash=c["flash"])
+    emit("mesh_path_launches", **counts, seconds=time.perf_counter() - t0)
+    if device == "cuda":
+        check(c["frontier_wide"] == c["frontier"] + c["frontier_pruned"],
+              f"a narrow frontier launch on the mesh path: {c}")
+        for name in ("frontier_wide", "frontier_wide_pruned", "flash"):
+            check(counts[name] > 0, f"kernel {name} never launched on the mesh path")
+        torch.cuda.empty_cache()
+    return dict(counts=counts, per_pass=dict(
+        train_step=m1["flash_launches_per_step"],
+        decode_step_knn=(c["frontier"]) / m2["steps"],
+        decode_step_knn_pruned=c["frontier_pruned"] / m2["steps"]))
 
 
 def with_families(rows: list, fam: dict) -> list:
@@ -3831,6 +4044,7 @@ def main() -> int:
     forest = run_forest(FOREST_FULL, "cuda")
     torch.cuda.empty_cache()
     ctx, (wide, wide_pruned, prune, flash) = run_lm(LM_FULL, "cuda")
+    lm_toks = ctx["lm_toks"]   # M2's reference: run_stream keeps only what it needs
     torch.cuda.empty_cache()
     stream = run_stream(ctx, STREAM_FULL, "cuda")
     torch.cuda.empty_cache()
@@ -3842,10 +4056,13 @@ def main() -> int:
     gc.collect()               # every family's weights are gone
     torch.cuda.empty_cache()
     train = run_train(TRAIN_FULL, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = run_mesh(MESH_FULL, "cuda", train["t1"], lm_toks)
     narrow, narrow_pruned, scan = with_forest(index_rows, forest)
     kernels = with_families(with_path(with_path(
         [narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash], stream, "stream"),
-        serve, "serve"), {**fam, "train": train})
+        serve, "serve"), {**fam, "train": train, "mesh": mesh})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

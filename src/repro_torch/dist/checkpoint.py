@@ -19,7 +19,9 @@ holds a tree of tensors: dicts (flattened in sorted key order, as JAX
 flattens them), lists and tuples, and ``TreeArrays`` (its 16 array fields
 in ``ARRAY_FIELDS`` order, the reference's ``data_fields``).  Restore takes
 a *template* of the same structure and puts every leaf on the device of
-the template's leaf; there is no sharding argument.
+the template's leaf, or, for a leaf with an entry in ``shardings``
+(``dist.sharding.NamedSharding``s), this rank's local shard of it on the
+mesh's device: a checkpoint written under one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -223,10 +225,51 @@ def _from_host(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
     return t.to(like.device) if isinstance(like, torch.Tensor) else t
 
 
-def restore_checkpoint(directory: str, template, *, step: int | None = None):
+def _sharding_leaves(template, shardings) -> list:
+    """Per-leaf shardings aligned with the template's flatten order.
+    ``shardings`` mirrors a subset of the template's top-level keys (the
+    params sharded, the optimizer state to the host, say); a missing key
+    restores unsharded."""
+    n_total = len(_leaves(template))
+    if not shardings:
+        return [None] * n_total
+    is_leaf = lambda x: not isinstance(x, (dict, list, tuple))
+    flat = lambda t: [t] if is_leaf(t) else _leaves_of(t, is_leaf)
+    if not isinstance(template, dict):
+        out = flat(shardings)
+        if len(out) != n_total:
+            raise ValueError(f"{len(out)} shardings for {n_total} leaves")
+        return out
+    out: list = []
+    for key in sorted(template):        # dicts flatten in sorted key order
+        n = len(_leaves(template[key]))
+        sub = shardings.get(key) if isinstance(shardings, dict) else None
+        if sub is None:
+            out.extend([None] * n)
+            continue
+        leaves = flat(sub)
+        if len(leaves) != n:
+            raise ValueError(f"{key!r}: {len(leaves)} shardings for {n} leaves")
+        out.extend(leaves)
+    return out
+
+
+def _leaves_of(tree, is_leaf) -> list:
+    if is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of(tree[k], is_leaf)]
+    return [x for sub in tree for x in _leaves_of(sub, is_leaf)]
+
+
+def restore_checkpoint(directory: str, template, *, step: int | None = None,
+                       shardings=None):
     """Load a checkpoint into the structure of ``template``.
 
-    Returns (tree, manifest); every leaf lands on the device of the
+    Returns (tree, manifest).  A leaf with an entry in ``shardings`` (a
+    ``dist.sharding.NamedSharding``, in a tree that mirrors a subset of
+    the template's top-level keys) comes back as this rank's local shard
+    on its mesh's device; every other leaf lands on the device of the
     template's leaf."""
     if step is None:
         step = latest_step(directory)
@@ -239,12 +282,24 @@ def restore_checkpoint(directory: str, template, *, step: int | None = None):
     if manifest["n_leaves"] != len(leaves_t):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"template has {len(leaves_t)}")
+    sh_leaves = _sharding_leaves(template, shardings)
     out = []
     with np.load(os.path.join(path, _ARRAYS), allow_pickle=False) as z:
-        for i, tmpl in enumerate(leaves_t):
-            out.append(_from_host(z[_leaf_name(i)],
-                                  manifest["leaves"][i]["dtype"], tmpl))
+        for i, (tmpl, sh) in enumerate(zip(leaves_t, sh_leaves)):
+            t = _from_host(z[_leaf_name(i)], manifest["leaves"][i]["dtype"],
+                           None if sh is not None else tmpl)
+            if sh is not None:
+                from repro_torch.dist.sharding import shard_tensor
+                t = shard_tensor(t, sh.spec, sh.mesh, device=_mesh_device(sh.mesh))
+            out.append(t)
     return _unflatten(template, iter(out)), manifest
+
+
+def _mesh_device(mesh) -> torch.device:
+    kind = getattr(mesh, "device_type", "cpu")
+    if kind == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(kind)
 
 
 class CheckpointManager:

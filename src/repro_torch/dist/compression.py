@@ -55,16 +55,20 @@ def _quantize(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(g / scale), -_QMAX, _QMAX).to(torch.int8)
 
 
-def _hook_group(gs: list, es: list | None) -> tuple[list, list]:
+def _hook_group(gs: list, es: list | None, group=None) -> tuple[list, list]:
     """Quantise and dequantise the tensors of one group with one scale,
-    the residuals ``es`` (or None) folded in first.  -> (outputs,
-    residuals), each in its gradient's dtype."""
+    the residuals ``es`` (or None) folded in first; with a process
+    ``group``, the scale's amax is the largest over its ranks.  ->
+    (outputs, residuals), each in its gradient's dtype."""
     gf = [g.float() for g in gs]
     if es is not None:
         gf = [t + e.float() for t, e in zip(gf, es, strict=True)]
     amax = gf[0].abs().max()
     for t in gf[1:]:
         amax = torch.maximum(amax, t.abs().max())
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = _scale_of(amax)
     outs, errs = [], []
     for g, t in zip(gs, gf):
@@ -74,7 +78,8 @@ def _hook_group(gs: list, es: list | None) -> tuple[list, list]:
     return outs, errs
 
 
-def compressed_mean_hook(grads, mode: str = "int8", ef=None, *, groups=None):
+def compressed_mean_hook(grads, mode: str = "int8", ef=None, *, groups=None,
+                         group=None):
     """Quantise-dequantise every floating gradient (int8, one float32 scale
     a leaf); leaf dtypes are kept.  A passthrough for ``mode`` in (None,
     "none", False).
@@ -83,7 +88,11 @@ def compressed_mean_hook(grads, mode: str = "int8", ef=None, *, groups=None):
     before quantising, q(g + e), and the call returns ``(grads_out,
     ef_next)`` with ``ef_next = (g + e) - deq(...)``; without it, just
     ``grads_out``.  ``groups`` (lists of keys of a flat dict ``grads``)
-    makes each group's tensors share one scale."""
+    makes each group's tensors share one scale.  ``group`` (a process
+    group, with ``groups``): the gradients are this rank's shards of
+    gradients already reduced over the data ranks, and each scale's amax
+    is all-reduced with MAX over ``group``, so every shard of a leaf is
+    quantised with the whole leaf's scale, the reference's numerics."""
     if mode in (None, "none", False):
         return grads if ef is None else (grads, ef)
     if groups is None:
@@ -98,7 +107,7 @@ def compressed_mean_hook(grads, mode: str = "int8", ef=None, *, groups=None):
     out, ef_next = {}, {}
     for keys in groups:
         outs, errs = _hook_group([grads[k] for k in keys],
-                                 None if ef is None else [ef[k] for k in keys])
+                                 None if ef is None else [ef[k] for k in keys], group)
         out.update(zip(keys, outs))
         ef_next.update(zip(keys, errs))
     return out if ef is None else (out, ef_next)
@@ -131,7 +140,7 @@ def compressed_psum_mean(tree, group=None, ef=None):
         scale = _scale_of(amax)
         q = _quantize(gf, scale)
         deq = q.float() * scale
-        total = q.to(torch.int32)
+        total = q.to(torch.int32, memory_format=torch.contiguous_format)
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
         n = torch.full((), world, dtype=torch.float32, device=gf.device)
         mean = (total.float() * scale / n).to(g.dtype)

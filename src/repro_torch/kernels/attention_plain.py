@@ -58,13 +58,20 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     return out.reshape(b, hk, g, sq, d).reshape(b, h, sq, d).to(q.dtype)
 
 
-def decode_attention(q1, k, v, *, scale: float | None = None, kv_len=None):
+def decode_attention(q1, k, v, *, scale: float | None = None, kv_len=None,
+                     positions=None, merge=None):
     """Single-position decode attention.
 
     q1: [b, h, 1, d]; k, v: [b, hk, S, d] (the cache, possibly longer than
     the valid prefix); kv_len: [b] valid lengths (attend to positions
     < kv_len).  GQA folds the query group instead of repeating the cache.
-    Safe softmax in float32."""
+    Safe softmax in float32.
+
+    For a cache that holds one slice of the sequence (dist/parallel.py):
+    ``positions`` [S] are its slots' positions (default ``arange(S)``), and
+    ``merge(t, op)`` combines a partial result in place over the ranks that
+    hold the other slices, ``op`` "max" for the running max and "sum" for
+    the softmax's sum and the weighted values (a log-sum-exp merge)."""
     b, h, _, d = q1.shape
     hk, S = k.shape[1], k.shape[2]
     g = h // hk
@@ -73,10 +80,18 @@ def decode_attention(q1, k, v, *, scale: float | None = None, kv_len=None):
     s = torch.einsum("bhgd,bhkd->bhgk", qf, k.float())
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, device=q1.device)
-        mask = torch.arange(S, device=q1.device)[None, :] < kv_len[:, None]   # [b, S]
+        if positions is None:
+            positions = torch.arange(S, device=q1.device)
+        mask = positions[None, :] < kv_len[:, None]                    # [b, S]
         s = torch.where(mask[:, None, None, :], s, NEG_INF)
     m = s.amax(-1, keepdim=True)
+    if merge is not None:
+        merge(m, "max")
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    out = torch.einsum("bhgk,bhkd->bhgd", p, v.float()) / torch.where(l == 0, 1.0, l)
+    acc = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    if merge is not None:
+        merge(l, "sum")
+        merge(acc, "sum")
+    out = acc / torch.where(l == 0, 1.0, l)
     return out.reshape(b, h, 1, d).to(q1.dtype)

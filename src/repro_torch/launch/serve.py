@@ -1,6 +1,5 @@
-"""Batched serving driver: prompt feed + cached greedy decode on one card,
-optional kNN-LM mixing from an SM-tree datastore.  Port of the
-single-device path of ``repro/launch/serve.py``.
+"""Batched serving entry point: prompt feed + cached greedy decode, optional
+kNN-LM mixing from an SM-tree datastore.  Port of ``repro/launch/serve.py``.
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --knn     # the card
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --knn  # MoE, 57 GB f32
@@ -9,6 +8,7 @@ single-device path of ``repro/launch/serve.py``.
     python -m repro_torch.launch.serve --smoke --knn --device cpu  # the CPU
     python -m repro_torch.launch.serve --knn --knn-mutate [--knn-shards 4] --obs
     python -m repro_torch.launch.serve --knn --knn-mutate --frontend --replicas 2 --obs
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --smoke --knn --mesh host --device cpu
 
 The flags are the reference's, plus ``--device``.  ``--knn-mutate`` adds
 and evicts a decode step's entries through the streaming store, and
@@ -18,8 +18,12 @@ and evicts a decode step's entries through the streaming store, and
 the mutations through its scheduler; ``--replicas N`` ships the store's
 WAL over a socket to N read replicas behind a router; ``--obs`` turns the
 observability plane on and prints its final snapshot as one ``[obs]
-{...}`` line.  ``--mesh host`` (the sharded decode) stops with an argparse
-error naming its ROADMAP item.  For an encoder-decoder (whisper) the loop
+{...}`` line.  ``--mesh host`` over more than one rank runs
+``serve_sharded``: the decode on a ('data', 'model') mesh
+(``launch/mesh.py:host_mesh``; the rank and world from the
+``torch.distributed`` environment), with ``--knn`` the mesh store; on one
+rank it prints that it falls back to the unsharded path, as the
+reference does, and ``--knn-shards`` with it is refused.  For an encoder-decoder (whisper) the loop
 runs no encoder, as the reference's does: the cross-attention reads the
 zero K/V of ``init_cache``, and ``--prompt-len`` + ``--steps`` may not pass
 the decoder's ``max_target_len`` positions.  Weights are random (seed 0, drawn on the
@@ -60,7 +64,7 @@ def _dump_obs(args) -> None:
     print(f"[obs] {body}", flush=True)
 
 
-def _build_store(args, cfg, device) -> KnnLmDatastore:
+def _build_store(args, cfg, device, mesh=None) -> KnnLmDatastore:
     """Synthetic kNN-LM datastore: 2048 random keys of width d_model under
     l2, random next-token values (the reference's ``_build_store``).  With
     ``--knn-mutate`` or ``--frontend`` its mutations go through the stream
@@ -68,12 +72,13 @@ def _build_store(args, cfg, device) -> KnnLmDatastore:
     above 1 (the reference's skew settings: max skew 1.3, 256 objects at
     least).  ``--frontend`` puts the serving front-end before the stream;
     ``--replicas N`` gives the stream a WAL (in a temporary directory that
-    ``_finish_frontend`` removes) and ships it to N replicas."""
+    ``_finish_frontend`` removes) and ships it to N replicas.  With a
+    ``mesh`` it is the mesh store (query rows split over its data axis)."""
     rng = np.random.default_rng(0)
     keys = rng.standard_normal((2048, cfg.d_model)).astype(np.float32)
     vals = rng.integers(0, cfg.vocab_size, 2048).astype(np.int32)
     store = KnnLmDatastore(KnnLmConfig(lam=args.lam, metric="l2"), cfg.d_model,
-                           device=device)
+                           mesh=mesh, device=device)
     store.build(keys, vals)
     if args.knn_mutate or args.frontend:
         wal_dir = None
@@ -240,6 +245,79 @@ def serve_loop(args, cfg, params, store=None, _split: list | None = None):
                       mutations=mutator.n_ops if mutator else 0)
 
 
+def serve_sharded(args, cfg, mesh):
+    """Greedy decode on a ('data', 'model') ``DeviceMesh`` through the
+    serve_step builders' mesh forms, on every rank of it: this rank's
+    shards of the seeded weights (``ShardedLM``), the token rows its data
+    coordinate holds, the KV cache split as ``cache_pspecs`` says.  Each
+    step's tokens and logits are gathered whole on every rank.  With
+    ``--knn`` the mesh store rides along (``make_knnlm_mixer``): the query
+    cohort's rows split over 'data', every rank's own copy of the tree;
+    with ``--knn-mutate`` every rank applies the same window of mutations,
+    so the trees stay equal.  Returns (tokens [b, steps + 1] numpy, the
+    store or None, timings dict), and prints the reference's summary."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.dist.parallel import ShardedLM
+    from repro_torch.dist.sharding import local_slices
+    from repro_torch.serve.serve_step import make_knnlm_mixer
+
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    total = args.prompt_len + args.steps + 1
+    shape = ShapeSpec("serve", total, args.batch, "decode")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.prompt_len,
+                    global_batch=args.batch)
+    prompt = torch.from_numpy(synth_batch(dc, 0, with_labels=False)["tokens"]).to(dev)
+    fn, sh = make_decode_step(cfg, mesh, shape)
+    rows = local_slices(sh["token"], (args.batch,), mesh)[0]
+    split = sh["token"][0] is not None
+    data = mesh.get_group("data")
+    whole = (lambda t: all_gather(t, 0, data)) if split else (lambda t: t)
+    params = ShardedLM.from_model(M.init_params(cfg, 0, device=dev), cfg, mesh)
+    cache = params.init_cache(args.batch, total, sh["cache"])
+    store = mix_fn = mutator = None
+    if args.knn:
+        store = _build_store(args, cfg, dev, mesh=mesh)
+        mix_fn, _ = make_knnlm_mixer(cfg, mesh, shape, store, lam=args.lam)
+        if args.knn_mutate:
+            mutator = _WindowMutator(store)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    for pos in range(args.prompt_len):
+        tok, logits, cache = fn(params, prompt[rows, pos], cache, pos)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    tok = whole(tok)
+    out = [tok]
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        fed = tok
+        tok, logits, cache = fn(params, fed[rows], cache, args.prompt_len + step)
+        tok = whole(tok)
+        if mix_fn is not None:
+            h = params.embed_tokens(fed[:, None].long())[:, 0].float()
+            tok = mix_fn(whole(logits), h).argmax(-1).to(torch.int32)
+            if mutator is not None:
+                mutator.step(h, tok)
+        out.append(tok)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    toks = torch.stack(out, dim=1).cpu().numpy()
+    fe = _frontend_summary(_finish_frontend(store, args))
+    mut = (f", {mutator.n_ops} live mutations ({mutator.n_ops / decode_s:.0f} ops/s)"
+           if mutator else "")
+    ms = decode_s / max(1, args.steps) * 1e3
+    print(f"[serve] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} batch {args.batch}: "
+          f"prompt {prefill_s:.2f}s, decode {args.steps} steps in {decode_s:.2f}s "
+          f"({ms:.1f} ms/step{', kNN-LM mixed' if mix_fn else ''}{mut}{fe})")
+    print("[serve] sample:", toks[0][:12])
+    _dump_obs(args)
+    return toks, store, dict(prefill_s=prefill_s, decode_s=decode_s, ms_per_step=ms,
+                             mutations=mutator.n_ops if mutator else 0)
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -282,7 +360,7 @@ def parser() -> argparse.ArgumentParser:
                     help="with --obs: also write the final snapshot JSON to PATH")
     ap.add_argument("--lam", type=float, default=0.3)
     ap.add_argument("--mesh", default="single", choices=["single", "host"],
-                    help="'host' (sharded decode) is not ported yet")
+                    help="'host': the sharded decode over the process group's ranks")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions of the kernels)")
@@ -304,9 +382,9 @@ def main(argv=None):
         if args.replicas:
             ap.error("--knn-shards does not compose with --replicas "
                      "(socket replication follows single-tree engines)")
-    if args.mesh == "host":
-        ap.error("--mesh host needs the sharded decode (ROADMAP Queue 1 "
-                 "items 17 and 15): not ported yet")
+        if args.mesh == "host":
+            ap.error("--knn-shards is the host-side forest; it does not "
+                     "compose with --mesh host")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_encdec and args.prompt_len + args.steps > cfg.max_target_len:
         ap.error(f"--prompt-len + --steps = {args.prompt_len + args.steps} passes "
@@ -314,6 +392,14 @@ def main(argv=None):
     if args.obs:
         obs.enable()
     dev = resolve_device(args.device)
+    if args.mesh == "host":
+        from repro_torch.launch.mesh import host_mesh
+        mesh = host_mesh(dev)
+        if mesh is not None:
+            return serve_sharded(args, cfg, mesh)[0]
+        print("[serve] --mesh host requested but only 1 rank is up; falling back to "
+              "the UNSHARDED single-device path (start N ranks, e.g. torchrun "
+              "--nproc-per-node N, to shard)", flush=True)
     params = M.init_params(cfg, 0, device=dev)
     store = _build_store(args, cfg, dev) if args.knn else None
     toks, t = serve_loop(args, cfg, params, store)

@@ -16,9 +16,21 @@ Checkpoints are the reference's ``{"params", "opt": {"step", "mu",
 "nu"}}`` tree, leaf for leaf (``models/convert.py``), so either package
 resumes the other's.
 
-``--mesh host`` on one process is the one-device run, as the reference's
-is on one device; with ``torch.distributed`` up at more than one rank it
-stops, since the sharded train step is not ported yet.
+``--mesh host`` over more than one rank runs the sharded train step
+(``train_step.make_train_step(cfg, mesh, ...)``) on a ('data', 'model')
+mesh of shape (W // nm, nm), nm = 2 when the world size W is even, as the
+reference lays out its devices.  The rank and the world come from the
+usual ``torch.distributed`` environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``; ``torchrun`` sets them),
+or from a process group the caller already started; the backend is NCCL
+on the card (one card a rank) and gloo on the CPU.  Checkpoints hold the
+full tree, written by rank 0 from the shards that every rank sends it leaf
+by leaf, so a run resumes on any mesh or on one device; a resume on a
+mesh reads each rank's shards of each leaf straight onto its card
+(``restore_checkpoint(shardings=)``).  On one rank ``--mesh host`` is the one-device
+run, as the reference's is on one device.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -26,15 +38,19 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.smtree import resolve_device
 from repro_torch.data.pipeline import DataConfig, synth_batch
-from repro_torch.dist.checkpoint import CheckpointManager, latest_step
-from repro_torch.models.convert import (from_reference_tree, reference_layout,
-                                        to_reference_tree)
+from repro_torch.dist.checkpoint import CheckpointManager, latest_step, restore_checkpoint
+from repro_torch.dist.sharding import to_named
+from repro_torch.launch.mesh import host_mesh
+from repro_torch.models.convert import reference_layout, to_reference_tree
+from repro_torch.models.model import param_specs
 from repro_torch.train.optimizer import AdamWConfig, AdamWState
-from repro_torch.train.train_step import TrainSettings, init_all, make_train_step
+from repro_torch.train.train_step import (TrainSettings, gather_state, init_all,
+                                          init_sharded, make_train_step)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -84,11 +100,21 @@ def restore_template(params, opt: AdamWState, layout: dict):
 @torch.no_grad()
 def load_state(tree: dict, params, opt: AdamWState, layout: dict) -> AdamWState:
     """Copy a restored checkpoint tree into the model's parameters and the
-    optimizer's moments; -> the optimizer state at the restored step."""
+    optimizer's moments; -> the optimizer state at the restored step.  On
+    a mesh the tree is this rank's shards (``restore_checkpoint(
+    shardings=)``), ``params`` a ``ShardedLM`` and ``opt`` this rank's
+    ZeRO-1 moments; a stacked leaf whose period axis the table splits
+    holds only this rank's ``n`` periods, layer ``i`` at ``i % n``, and
+    the moments of a layer another data rank holds are not loaded here."""
     for dst, src in ((dict(params.named_parameters()), tree["params"]),
                      (opt.mu, tree["opt"]["mu"]), (opt.nu, tree["opt"]["nu"])):
-        for name, t in from_reference_tree(src, layout).items():
-            dst[name].copy_(t)
+        for name, (path, idx) in layout.items():
+            if name not in dst:
+                continue
+            node = src
+            for k in path:
+                node = node[k]
+            dst[name].copy_(node if idx is None else node[idx % node.shape[0]])
     return AdamWState(tree["opt"]["step"].to(opt.step.device), opt.mu, opt.nu)
 
 
@@ -99,28 +125,43 @@ def main(argv=None):
     if cfg.is_encdec or cfg.frontend == "vision_stub":
         ap.error(f"{cfg.name} takes inputs beside the tokens; the trainer feeds "
                  f"synth_batch's tokens and labels only, as the reference's does")
-    if (args.mesh == "host" and torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        ap.error("--mesh host over more than one rank needs the sharded train step "
-                 "(ROADMAP Queue 1 item 17): not ported yet")
     dev = resolve_device(args.device)
+    mesh = host_mesh(dev) if args.mesh == "host" else None
+    if mesh is not None and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    lead = mesh is None or dist.get_rank() == 0
 
     dc = DataConfig(seed=args.data_seed, vocab_size=cfg.vocab_size,
                     seq_len=args.seq_len, global_batch=args.global_batch)
     settings = TrainSettings(opt=AdamWConfig(
         lr=args.lr, warmup_steps=max(5, args.steps // 20), total_steps=args.steps))
-    step_fn = make_train_step(cfg, settings)
-
-    params, opt = init_all(cfg, 0, device=dev)
-    layout = reference_layout(params, cfg)
+    if mesh is None:
+        step_fn = make_train_step(cfg, settings=settings)
+        params, opt = init_all(cfg, 0, device=dev)
+        layout = reference_layout(params, cfg)
+        save_tree = lambda: state_tree(params, opt, layout)
+    else:
+        step_fn, shardings = make_train_step(cfg, mesh, synth_batch(dc, 0), settings)
+        params, opt = init_sharded(cfg, mesh, 0, device=dev)
+        layout = reference_layout(param_specs(cfg), cfg)
+        save_tree = lambda: sharded_state_tree(params, opt, cfg, mesh, layout)
     start = 0
-    mgr = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None
+    mgr = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir and lead else None
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        tree, manifest = mgr.restore_latest(restore_template(params, opt, layout))
+        if mesh is None:
+            tree, manifest = mgr.restore_latest(restore_template(params, opt, layout))
+        else:
+            # every rank reads its own shards of each leaf, straight to its card
+            meta = param_specs(cfg)
+            named = dict(meta.named_parameters())
+            template = restore_template(meta, AdamWState(torch.zeros(()), named, named), layout)
+            tree, manifest = restore_checkpoint(
+                args.ckpt_dir, template, shardings=to_named(
+                    {"params": shardings["params"], "opt": shardings["opt"]}, mesh))
         opt = load_state(tree, params, opt, layout)
         start = manifest["step"]
-        print(f"[train] resumed from step {start}")
+        if lead:
+            print(f"[train] resumed from step {start}")
 
     if start >= args.steps:
         print(f"[train] nothing to do: resumed at step {start} >= "
@@ -135,22 +176,47 @@ def main(argv=None):
             raise SystemExit(f"[train] injected failure at step {step}")
         batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(dc, step).items()}
         params, opt, metrics = step_fn(params, opt, batch)
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             loss = float(metrics["loss"])
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"({(time.time() - t0) / max(step - start, 1):.2f}s/step)",
                   flush=True)
-        if mgr and step and step % args.ckpt_every == 0:
+        if args.ckpt_dir and step and step % args.ckpt_every == 0:
             # step + 1 = the next step to run: resume must not replay this one
-            mgr.save(step + 1, state_tree(params, opt, layout))
-    if mgr:
-        mgr.save(args.steps, state_tree(params, opt, layout))
-        mgr.wait()
-    print(f"[train] done: {args.steps - start} steps, final loss "
-          f"{float(metrics['loss']):.4f}")
+            _save(mgr, step + 1, save_tree, mesh)
+    if args.ckpt_dir:
+        _save(mgr, args.steps, save_tree, mesh)
+        if mgr:
+            mgr.wait()
+    if lead:
+        print(f"[train] done: {args.steps - start} steps, final loss "
+              f"{float(metrics['loss']):.4f}")
     return float(metrics["loss"])
+
+
+def _save(mgr, step: int, tree, mesh) -> None:
+    """Rank 0 writes; in a sharded run every rank sends its shards to rank
+    0 first."""
+    t = tree()
+    if mgr:
+        mgr.save(step, t)
+    if mesh is not None:
+        dist.barrier()
+
+
+def sharded_state_tree(params, opt: AdamWState, cfg, mesh, layout: dict) -> dict | None:
+    """The checkpoint tree of a sharded state on rank 0 (None on the
+    others): the shards gathered to its host leaf by leaf
+    (``gather_state``), then the reference's ``{"params", "opt"}``."""
+    state = gather_state(params, opt, cfg, mesh)
+    if state is None:
+        return None
+    full_p, full_mu, full_nu = state
+    tree = lambda values: to_reference_tree(values, layout, device="cpu")
+    return {"params": tree(full_p),
+            "opt": {"step": opt.step.cpu(), "mu": tree(full_mu), "nu": tree(full_nu)}}
 
 
 if __name__ == "__main__":

@@ -45,12 +45,13 @@ class Attention(nn.Module):
         return cls(*w, *b)
 
 
-def _head_mask(cfg, out):
-    """Zero the padded q-heads (axis 1 of [b, H, s, dh])."""
-    Hp = cfg.padded_heads
-    if Hp == cfg.n_heads:
+def _head_mask(cfg, out, lo: int = 0):
+    """Zero the padded q-heads (axis 1 of [b, H, s, dh]); ``out`` holds
+    heads ``lo, lo + 1, ...`` (a tensor-parallel rank's slice)."""
+    if cfg.padded_heads == cfg.n_heads:
         return out
-    mask = (torch.arange(Hp, device=out.device) < cfg.n_heads).to(out.dtype)
+    idx = torch.arange(out.shape[1], device=out.device)
+    mask = ((idx + lo if lo else idx) < cfg.n_heads).to(out.dtype)
     return out * mask[None, :, None, None]
 
 
@@ -82,16 +83,21 @@ def _repeat_kv(t, g: int):
     return t[:, :, None].expand(b, kv, g, s, dh).reshape(b, kv * g, s, dh)
 
 
-def attn_apply(p: Attention, cfg, x, *, pos, attention=None):
+def attn_apply(p: Attention, cfg, x, *, pos, attention=None, lo: int = 0):
     """Full-sequence causal attention.  x: [b, s, D]; pos: [b, s].
     ``attention`` replaces ``ops.attention`` (the plain version on the card,
-    for comparisons); None takes the device's default."""
+    for comparisons); None takes the device's default.  ``p`` may hold a
+    tensor-parallel rank's query heads ``lo, lo + 1, ...`` (``wq``, ``bq``
+    and ``wo`` on their head axis; ``wk``/``wv`` whole, dist/parallel.py):
+    the K/V repeated to every head are then cut to the same heads."""
     q, k, v = _project_qkv(p, cfg, x, pos)
     g = cfg.padded_heads // cfg.padded_kv_heads
     if g > 1:
         k, v = _repeat_kv(k, g), _repeat_kv(v, g)
+    if q.shape[1] != k.shape[1]:
+        k, v = k[:, lo:lo + q.shape[1]], v[:, lo:lo + q.shape[1]]
     out = (attention or ops.attention)(q, k, v, causal=True)
-    return _out_proj(p, _head_mask(cfg, out))
+    return _out_proj(p, _head_mask(cfg, out, lo))
 
 
 def attn_decode(p: Attention, cfg, x1, cache_kv, pos_scalar: int):

@@ -144,8 +144,13 @@ class MLP(nn.Module):
         return cls(wi, mk(f, d), wg)
 
     def forward(self, x):
-        if self.wg is not None:
-            h = F.silu(self.wg(x)) * self.wi(x)
-        else:
-            h = F.gelu(self.wi(x), approximate="tanh")   # jax.nn.gelu's default
-        return self.wo(h)
+        return self.wo(mlp_hidden(x, self.wi, self.wg))
+
+
+def mlp_hidden(x, wi, wg=None):
+    """An MLP's hidden activations, ``wi`` and ``wg`` mapping ``x`` to the
+    hidden width: ``silu(wg(x)) * wi(x)`` gated, else ``gelu(wi(x))``
+    (tanh form, ``jax.nn.gelu``'s default)."""
+    if wg is not None:
+        return F.silu(wg(x)) * wi(x)
+    return F.gelu(wi(x), approximate="tanh")

@@ -26,6 +26,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None):
     return transformer.init_lm(cfg, gen, dev)
 
 
+def param_specs(cfg: ArchConfig):
+    """The model with every parameter on the meta device: its names,
+    shapes and dtypes, nothing allocated (the reference's ``param_specs``)."""
+    gen, meta = torch.Generator(), torch.device("meta")
+    if cfg.is_encdec:
+        return encdec.init_encdec(cfg, gen, meta)
+    return transformer.init_lm(cfg, gen, meta)
+
+
 def trainable(params):
     """Every parameter of an ``LM`` or ``EncDec`` set to require grad (in
     place); returns ``params``."""

@@ -181,34 +181,50 @@ def embed_inputs(params: LM, cfg: ArchConfig, batch: dict):
     return x, pos
 
 
-def _trunk(params: LM, cfg: ArchConfig, batch: dict, attention, routing,
-           remat: bool = False):
-    """-> (final-normed hidden states [b, s, D], aux sums [3] over the MoE
-    layers, in ``AUX_KEYS`` order).  The layers run period by period of
-    ``cfg.block_pattern``, each period's aux summed apart and the periods'
-    sums added at the end (the reference's scan); with ``remat`` while
-    autograd records, each period is one activation checkpoint, recomputed
-    in the backward (the reference's ``jax.checkpoint(period_fn)``)."""
-    x, pos = embed_inputs(params, cfg, batch)
+def run_periods(cfg: ArchConfig, x, block_fn, remat: bool = False):
+    """x through every layer, period by period of ``cfg.block_pattern``:
+    ``block_fn(layer, x) -> (x, aux or None)``.  -> (x, aux sums [3] over
+    the MoE layers, in ``AUX_KEYS`` order): each period's aux summed apart
+    and the periods' sums added at the end (the reference's scan); with
+    ``remat`` while autograd records, each period is one activation
+    checkpoint, recomputed in the backward (the reference's
+    ``jax.checkpoint(period_fn)``).  The one-device trunk and the sharded
+    one (dist/parallel.py) both run their layers here."""
     n = len(cfg.block_pattern)
 
-    def period(x, blocks):
+    def period(x, p):
         sums = torch.zeros((3,), dtype=torch.float32, device=x.device)
-        for blk in blocks:
-            x, aux = blk(cfg, x, pos, attention, routing)
+        for layer in range(p * n, (p + 1) * n):
+            x, aux = block_fn(layer, x)
             if aux is not None:
                 sums = sums + torch.stack([aux[k] for k in AUX_KEYS])
         return x, sums
 
     per_period = []
     for p in range(cfg.n_periods):
-        blocks = params.blocks[p * n:(p + 1) * n]
         if remat and torch.is_grad_enabled():
-            x, sums = checkpoint(period, x, blocks, use_reentrant=False)
+            x, sums = checkpoint(period, x, p, use_reentrant=False)
         else:
-            x, sums = period(x, blocks)
+            x, sums = period(x, p)
         per_period.append(sums)
-    return params.final_norm(x), torch.stack(per_period).sum(0)
+    return x, torch.stack(per_period).sum(0)
+
+
+def aux_means(cfg: ArchConfig, sums) -> dict:
+    """``run_periods``' aux sums as the forward's aux dict: divided by
+    ``max(1, n_moe * n_periods)`` (zeros without MoE layers)."""
+    n_moe = sum(1 for k in cfg.block_pattern if k.endswith("_moe"))
+    return dict(zip(AUX_KEYS, (sums / max(1, n_moe * cfg.n_periods)).unbind()))
+
+
+def _trunk(params: LM, cfg: ArchConfig, batch: dict, attention, routing,
+           remat: bool = False):
+    """-> (final-normed hidden states [b, s, D], aux sums [3] over the MoE
+    layers, in ``AUX_KEYS`` order), the layers run by ``run_periods``."""
+    x, pos = embed_inputs(params, cfg, batch)
+    x, sums = run_periods(
+        cfg, x, lambda layer, x: params.blocks[layer](cfg, x, pos, attention, routing), remat)
+    return params.final_norm(x), sums
 
 
 def hidden_states(params: LM, cfg: ArchConfig, batch: dict, *, _attention=None):
@@ -226,9 +242,7 @@ def lm_forward(params: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
     ``_routing`` (private) collects each MoE layer's routing
     (models/moe.py), once more for each period that remat recomputes."""
     x, sums = _trunk(params, cfg, batch, _attention, _routing, remat)
-    n_moe = sum(1 for k in cfg.block_pattern if k.endswith("_moe"))
-    sums = sums / max(1, n_moe * cfg.n_periods)
-    return params.head(x), dict(zip(AUX_KEYS, sums.unbind()))
+    return params.head(x), aux_means(cfg, sums)
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, dtype=None,

@@ -19,8 +19,14 @@ WAL-logged, with retrieval on a pinned epoch; with ``shards > 1`` the store
 becomes a streaming forest.  ``enable_frontend`` puts the serving
 front-end in front of the stream (retrieval coalesces into epoch-pinned
 cohorts; batches ride its scheduler), and ``enable_replication`` ships the
-WAL over a socket to read replicas behind a ``ReplicaRouter``.  Not ported
-yet: the mesh-sharded store (ROADMAP Queue 1 item 13.4).
+WAL over a socket to read replicas behind a ``ReplicaRouter``.
+
+With a ``mesh`` (a {data, model} ``DeviceMesh``, launch/mesh.py) the store
+is the mesh store: every rank holds the same tree (built from the same
+keys, mutated by the same batches), each retrieval runs this rank's rows
+of the query cohort (``dist.sharding.query_pspecs``: over the dp axes,
+when they divide it) and the results are all-gathered, so every rank gets
+the whole cohort's answer, equal to one device's.
 """
 from __future__ import annotations
 
@@ -38,10 +44,6 @@ from repro_torch.models import model as M
 from repro_torch.serve.frontend import pinned_knn
 
 
-def _not_ported(what: str, part: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item 13.{part})")
-
-
 @dataclasses.dataclass
 class KnnLmConfig:
     k: int = 8
@@ -53,14 +55,14 @@ class KnnLmConfig:
 
 
 class KnnLmDatastore:
-    """Single-device datastore over the port's SM-tree engine.  Keys:
-    hidden states [n, D]; values: next-token ids [n].  The tree lives on
-    ``device`` (None = the card); the oid-indexed key/value history stays
-    on the host, as in the reference."""
+    """Datastore over the port's SM-tree engine.  Keys: hidden states [n,
+    D]; values: next-token ids [n].  The tree lives on ``device`` (None =
+    the card); the oid-indexed key/value history stays on the host, as in
+    the reference.  With ``mesh`` set, query cohorts split over its dp
+    axes (the mesh store, above)."""
 
     def __init__(self, cfg: KnnLmConfig, dim: int, mesh=None, *, device=None):
-        if mesh is not None:
-            raise _not_ported("a mesh-sharded datastore", 4)
+        self.mesh = mesh
         self.cfg = cfg
         self.dim = dim
         self.device = resolve_device(device)
@@ -126,6 +128,10 @@ class KnnLmDatastore:
                                         WriteAheadLog)
         wal = WriteAheadLog(wal_dir) if wal_dir else None
         if shards and shards > 1:
+            if self.mesh is not None:
+                raise ValueError(
+                    "sharded streaming store is host-side; it does not "
+                    "compose with the mesh-replicated query path")
             from repro_torch.core.distributed import build_forest_trees
             trees = build_forest_trees(self.keys, int(shards),
                                        capacity=self.cfg.capacity,
@@ -289,16 +295,9 @@ class KnnLmDatastore:
         if self.frontend is not None:
             d, ids = self.frontend.knn(torch.as_tensor(h).float().cpu().numpy())
             d, ids = d.to(self.device), ids.to(self.device)
-        elif self.stream is None:
-            res = self.retrieve(h)
-            if obs.want_level_stats():      # sampled, as the stream paths
-                obs.observe_query_result(res)
-            d, ids = res.dists, res.ids
         else:
-            h = torch.as_tensor(h, dtype=torch.float32, device=self.device)
-            with self.stream.epochs.reading() as pinned:
-                d, ids = pinned_knn(pinned, h, k=self.cfg.k,
-                                    max_frontier=self.cfg.max_frontier)
+            h = torch.as_tensor(h)
+            d, ids = self._gather_rows(*self._knn_rows(self.shard_queries(h)), h.shape[0])
         if self._values_dev is None:
             self._values_dev = torch.from_numpy(self.values).to(self.device)
         vals = torch.where(ids >= 0, self._values_dev[ids.clamp_min(0).long()], 0)
@@ -310,6 +309,43 @@ class KnnLmDatastore:
         probs.index_put_((rows, vals.long()), torch.where(fin, w, 0.0),
                          accumulate=True)
         return torch.log(probs.clamp_min(1e-10))
+
+    def _knn_rows(self, h):
+        """The k nearest of each row of ``h`` on this rank's tree (a pinned
+        epoch with the stream on)."""
+        if self.stream is None:
+            res = self.retrieve(h)
+            if obs.want_level_stats():      # sampled, as the stream paths
+                obs.observe_query_result(res)
+            return res.dists, res.ids
+        h = torch.as_tensor(h, dtype=torch.float32, device=self.device)
+        with self.stream.epochs.reading() as pinned:
+            return pinned_knn(pinned, h, k=self.cfg.k, max_frontier=self.cfg.max_frontier)
+
+    def _query_spec(self, b: int):
+        from repro_torch.dist.sharding import query_pspecs
+        return query_pspecs(self.mesh, b)
+
+    def shard_queries(self, h):
+        """This rank's rows of a [b, D] query cohort (``query_pspecs``);
+        the whole cohort without a mesh."""
+        if self.mesh is None:
+            return h
+        from repro_torch.dist.sharding import local_slices
+        h = torch.as_tensor(h)
+        return h[local_slices(self._query_spec(h.shape[0]), tuple(h.shape), self.mesh)]
+
+    def _gather_rows(self, d, ids, b: int):
+        """The results of a ``b``-row cohort from every rank's rows (inner
+        axis first)."""
+        if self.mesh is None:
+            return d, ids
+        from repro_torch.dist.collectives import all_gather
+        from repro_torch.dist.sharding import _axes_of
+        for axis in reversed(_axes_of(self._query_spec(b)[0])):
+            group = self.mesh.get_group(axis)
+            d, ids = all_gather(d, 0, group), all_gather(ids, 0, group)
+        return d, ids
 
     def retrieve(self, h, *, _scorer=None):
         """The k nearest keys of each query (a ``QueryResult``: dists and

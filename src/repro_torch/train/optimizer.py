@@ -81,12 +81,15 @@ def _decay_mask(path: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState,
-                 decay: dict):
+                 decay: dict, *, gnorm: torch.Tensor | None = None):
     """One AdamW step.  ``params`` and ``grads`` are {name: tensor};
     ``decay`` {name: bool} (``_decay_mask`` of each name's reference path).
     Writes the parameters and the moments in place and returns (params,
-    new state, metrics {grad_norm, lr})."""
-    gnorm = global_norm(grads)
+    new state, metrics {grad_norm, lr}).  ``gnorm`` is the gradients'
+    global norm when ``grads`` hold only this rank's shards (the sharded
+    train step computes it over the ranks); None computes it here."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(_f32(gnorm, cfg.grad_clip) / gnorm.clamp_min(1e-9), max=1.0)
     step = state.step + 1
     lr = lr_at(cfg, step)

@@ -1,0 +1,36 @@
+"""Rank subprocesses for the port's multi-rank tests: ``WORLD`` Python
+processes running one script, meeting through a ``file://`` init in a
+directory, each writing ``out.<rank>.npz`` there (gloo on the CPU; NCCL
+needs a card a rank and is not exercised by these tests)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+WORLD = 4
+
+
+def run_ranks(code: str, d: Path, timeout: int = 240, world: int = WORLD) -> list:
+    """``code`` (run as ``python -c code <rank> <init> <dir>``) on ``world``
+    rank subprocesses; -> each rank's ``out.<rank>.npz`` as a dict.  Every
+    process is killed if any outlives ``timeout`` seconds."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    init = f"file://{d / 'rendezvous'}"
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), init, str(d)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK_DONE {r}" in so, se[-3000:]
+    return [dict(np.load(d / f"out.{r}.npz")) for r in range(world)]

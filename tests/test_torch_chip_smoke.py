@@ -574,3 +574,75 @@ def test_train_path_pins_its_full_size():
     assert full["attn_tol"] == 2e-4                  # phase 8's f32 tolerance
     assert (resume["steps"], resume["ckpt_every"], resume["fail_at"]) == (24, 8, 13)
     assert (resume["seq_len"], resume["global_batch"]) == (32, 4)
+
+
+MESH_TINY = dict(train=dict(arch="qwen2.5-3b", smoke=True, b=2, s=16,
+                            opt=dict(lr=3e-4, warmup_steps=2, total_steps=100)),
+                 serve_argv=["--knn", "--smoke"] + LM_ARGV)
+
+
+def test_mesh_path_rehearses_on_the_cpu():
+    """``run_mesh`` over a one-rank gloo group after ``run_train``: M1's
+    losses and grad norms bitwise T1's, M2's tokens bitwise the
+    single-device ``launch/serve --knn``'s on the same argv and its decode
+    step's logits bitwise the one-device decode step's."""
+    import copy
+
+    from repro.configs.all_archs import smoke_config
+    from repro.models.model import exact_param_count
+    tcfg = copy.deepcopy(TRAIN_TINY)
+    tcfg["full"]["params"] = exact_param_count(smoke_config("qwen2.5-3b"))
+    call = (f"(lambda train: run_mesh({MESH_TINY!r}, 'cpu', train['t1'], "
+            f"__import__('repro_torch.launch.serve', fromlist=['x']).main("
+            f"{MESH_TINY['serve_argv'] + ['--device', 'cpu']!r})))"
+            f"(run_train({tcfg!r}, 'cpu'))")
+    phases, mesh, m1, m2, logits, launches = _rehearse(
+        call, keep=("train_sharded", "serve_sharded", "serve_sharded_logits",
+                    "mesh_path_launches"))
+    assert phases[-4:] == ["train_sharded", "serve_sharded", "serve_sharded_logits",
+                           "mesh_path_launches"]
+    assert m1["bitwise_t1"] and m1["steps"] == 4 and len(m1["losses"]) == 4
+    assert m1["mesh"] == {"data": 1, "model": 1} and m1["backend"] == "gloo"
+    assert set(m1["profile"]["phases"]) == {"forward", "backward", "optimizer"}
+    assert m2["tokens_bitwise_lm_serve"] and (m2["batch"], m2["steps"]) == (2, 3)
+    # the sharded decode's logits, every step, bitwise the one-device ones
+    assert logits["max_abs_err"] == 0.0 == logits["tolerance"]
+    assert logits["positions"] == m2["prompt_len"] + m2["steps"]
+    assert logits["distinct_tokens_fed"] > 1
+    assert set(mesh["counts"]) == {"frontier", "frontier_pruned", "frontier_wide",
+                                   "frontier_wide_pruned", "distance", "flash"}
+    assert set(mesh["per_pass"]) == {"train_step", "decode_step_knn", "decode_step_knn_pruned"}
+    assert launches["seconds"] > 0
+
+
+def test_mesh_counts_join_the_rows():
+    """The mesh path's counts under ``launches_by_path.mesh`` on every row;
+    the flash row gains its launches a train step, the wide rows theirs a
+    decode step."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = [dict(name=n, launches=c, launches_per_pass={"p": c}) for n, c in
+            (("frontier_scores[wide]", 46), ("frontier_scores[wide,parent_prune]", 30),
+             ("pairwise_distance", 3), ("flash_attention_fwd", 468))]
+    counts = dict(frontier=0, frontier_pruned=0, frontier_wide=32, frontier_wide_pruned=96,
+                  distance=0, flash=360)
+    w, wp, d, f = chip_smoke.with_families(rows, {"mesh": dict(
+        counts=counts, per_pass=dict(train_step=72.0, decode_step_knn=2.0,
+                                     decode_step_knn_pruned=6.0))})
+    assert f["launches_by_path"] == {"lm": 468, "mesh": 360}
+    assert f["launches_per_pass"] == {"p": 468, "mesh:step": 72.0}
+    assert w["launches_by_path"] == {"lm": 46, "mesh": 32}
+    assert w["launches_per_pass"] == {"p": 46, "mesh:decode_step_knn": 2.0}
+    assert wp["launches_by_path"] == {"lm": 30, "mesh": 96}
+    assert wp["launches_per_pass"] == {"p": 30, "mesh:decode_step_knn": 6.0}
+    assert d["launches_by_path"] == {"lm": 3, "mesh": 0}
+
+
+def test_mesh_path_pins_its_size():
+    """M1 is T1's model and optimizer at T1's batch; M2 lm_serve's argv."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    m, t = chip_smoke.MESH_FULL["train"], chip_smoke.TRAIN_FULL["full"]
+    assert (m["arch"], m["smoke"], m["b"], m["s"], m["opt"]) == (
+        t["arch"], t["smoke"], t["b"], t["s"], t["opt"])
+    assert chip_smoke.MESH_FULL["serve_argv"] == chip_smoke.LM_FULL["serve_argv"] == ["--knn"]

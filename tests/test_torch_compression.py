@@ -237,7 +237,7 @@ def test_train_step_int8_error_feedback_tracks_uncompressed():
     opt = AdamWConfig(lr=5e-3, warmup_steps=2, total_steps=40)
 
     def run(settings):
-        step_fn = make_train_step(cfg, settings)
+        step_fn = make_train_step(cfg, settings=settings)
         state = init_all(cfg, 0, device="cpu", error_feedback=settings.error_feedback)
         losses = []
         for s in range(10):

@@ -800,7 +800,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     cpu = M.trainable(M.init_params(cfg, 0, device="cpu"))
     card = M.trainable(M.init_params(cfg, 0, device="cpu").to(cuda))
     batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4), 0)
-    step = make_train_step(cfg, TrainSettings())
+    step = make_train_step(cfg, settings=TrainSettings())
     out = {}
     for name, params, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
         before = flash_attention_fwd.launches
@@ -814,3 +814,88 @@ def test_train_step_on_card_matches_cpu(cuda):
     for k, mu in opt_c.mu.items():
         err = float((opt_g.mu[k].cpu() - mu).abs().max())
         assert err <= 1e-3 * float(mu.abs().max()), k
+
+
+def test_sharded_train_step_one_rank_nccl_is_bitwise(cuda, tmp_path):
+    """The mesh form of the train step on a (1, 1) mesh over a one-rank
+    NCCL group, two steps from the same seed as the one-device step:
+    losses, grad norms and every parameter bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.train_step import (TrainSettings, init_all, init_sharded,
+                                              make_train_step)
+    cfg = smoke_config("qwen2.5-3b")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in synth_batch(dc, i).items()}
+               for i in range(2)]
+    one = make_train_step(cfg, settings=TrainSettings())
+    params, opt = init_all(cfg, 0, device=cuda)
+    want = []
+    for b in batches:
+        _, opt, m = one(params, opt, b)
+        want.append((m["loss"], m["grad_norm"]))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        step, _ = make_train_step(cfg, mesh, batches[0], TrainSettings())
+        sp, so = init_sharded(cfg, mesh, 0, device=cuda)
+        got = []
+        for b in batches:
+            _, so, m = step(sp, so, b)
+            got.append((m["loss"], m["grad_norm"]))
+    finally:
+        dist.destroy_process_group()
+    for (l1, g1), (l2, g2) in zip(want, got):
+        assert torch.equal(l1, l2) and torch.equal(g1, g2)
+    for name, p in params.named_parameters():
+        assert torch.equal(p, sp.params[name]), name
+
+
+def test_sharded_state_gathers_to_rank_zero_over_nccl(cuda, tmp_path):
+    """``gather_state`` on a (1, 1) mesh over a one-rank NCCL group (the
+    checkpoint write's ``dist.gather`` to rank 0): every parameter and
+    moment comes back whole, in host memory, bitwise the card's; and the
+    mesh decode step's logits are bitwise the one-device decode step's on
+    seeded random tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.dist.parallel import ShardedLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import make_decode_step
+    from repro_torch.train.train_step import (TrainSettings, gather_state, init_sharded,
+                                              make_train_step)
+    cfg = smoke_config("qwen2.5-3b")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in synth_batch(dc, 0).items()}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        step, _ = make_train_step(cfg, mesh, batch, TrainSettings())
+        sp, so = init_sharded(cfg, mesh, 0, device=cuda)
+        _, so, _ = step(sp, so, batch)
+        full_p, mu, nu = gather_state(sp, so, cfg, mesh)
+        model = M.init_params(cfg, 0, device=cuda)
+        sharded = ShardedLM.from_model(model, cfg, mesh)
+        fn, sh = make_decode_step(cfg, mesh, ShapeSpec("d", 12, 2, "decode"))
+        cache, one = sharded.init_cache(2, 12, sh["cache"]), M.init_cache(cfg, 2, 12, device=cuda)
+        fed = torch.from_numpy(np.random.default_rng(9).integers(
+            0, cfg.vocab_size, (2, 12)).astype(np.int32)).to(cuda)
+        for pos in range(12):
+            _, got, cache = fn(sharded, fed[:, pos], cache, pos)
+            want, one = M.decode_step(model, cfg, fed[:, pos], one, pos)
+            assert torch.equal(got, want), pos
+    finally:
+        dist.destroy_process_group()
+    for name, p in sp.named_parameters():
+        assert full_p[name].device.type == "cpu" and torch.equal(full_p[name], p.detach().cpu())
+    for name, m in so.mu.items():
+        assert torch.equal(mu[name], m.cpu()) and torch.equal(nu[name], so.nu[name].cpu())

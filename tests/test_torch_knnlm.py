@@ -145,7 +145,9 @@ def test_add_batch_and_evict_batch_match_jax():
 
 def test_unported_store_features_raise():
     """The front-end and replication are ported (13.2): out of order they
-    raise the reference's ValueErrors.  The mesh store (13.4) is not."""
+    raise the reference's ValueErrors.  The mesh store (13.4) is ported
+    too: it takes a mesh, and refuses a sharded stream as the reference
+    does."""
     _, ts, _ = _stores("l2", n=100)
     with pytest.raises(ValueError, match=r"enable_stream\(\) before enable_frontend"):
         ts.enable_frontend()
@@ -154,8 +156,11 @@ def test_unported_store_features_raise():
     ts.enable_stream()
     with pytest.raises(ValueError, match=r"enable_stream\(wal_dir=\.\.\.\) before"):
         ts.enable_replication("unused")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 13\.4\)"):
-        knnlm.KnnLmDatastore(knnlm.KnnLmConfig(), 8, mesh=object(), device="cpu")
+    ms = knnlm.KnnLmDatastore(knnlm.KnnLmConfig(), 8, mesh=object(), device="cpu")
+    ms.build(np.random.default_rng(0).standard_normal((50, 8)).astype(np.float32),
+             np.arange(50, dtype=np.int32))
+    with pytest.raises(ValueError, match=r"does not compose with the mesh"):
+        ms.enable_stream(shards=2)
 
 
 @pytest.mark.parametrize("shards", [0, 3])
@@ -264,11 +269,12 @@ def test_serve_main_on_cpu_and_unported_flags():
                        "--prompt-len", "4"])
     assert toks.shape == (4, 4) and toks.dtype == np.int32
     # the reference's flag rules: --replicas needs --frontend, --knn-shards
-    # needs a stream and does not compose with --replicas; the mesh is not
-    # ported (the front-end's own flags parse: test_torch_serve_e2e.py)
+    # needs a stream and composes with neither --replicas nor --mesh host
+    # (the front-end's own flags parse: test_torch_serve_e2e.py; --mesh
+    # host serves: test_torch_serve_sharded.py)
     for flag in (["--replicas", "2"], ["--knn-shards", "2"],
                  ["--knn-shards", "2", "--frontend", "--replicas", "1"],
-                 ["--mesh", "host"]):
+                 ["--knn-shards", "2", "--knn-mutate", "--mesh", "host"]):
         with pytest.raises(SystemExit):
             serve.main(["--smoke", "--knn", "--device", "cpu"] + flag)
     args = serve.parser().parse_args(["--frontend", "--slo-ms", "5", "--cohort-width", "8"])

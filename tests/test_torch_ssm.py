@@ -118,5 +118,10 @@ def test_mamba_init_shapes_and_dtypes():
     want = {".".join(k.key for k in path): (tuple(a.shape), str(a.dtype))
             for path, a in jax.tree_util.tree_flatten_with_path(jp)[0]}
     assert got == want
-    np.testing.assert_array_equal(p.A_log.numpy(), np.asarray(jp["A_log"]))
+    # the correctly rounded log: float64's, rounded to float32
+    n = cfg.ssm_state
+    exact = np.log(np.arange(1, n + 1, dtype=np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(p.A_log.numpy(), np.broadcast_to(exact, p.A_log.shape))
+    # XLA:CPU's log is an ulp off at log(7) on some hosts
+    np.testing.assert_array_max_ulp(p.A_log.numpy(), np.asarray(jp["A_log"]), maxulp=1)
     assert bool((p.D == 1).all()) and bool((p.dt_proj.b == 0).all())

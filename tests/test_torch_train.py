@@ -282,7 +282,7 @@ def test_train_step_matches_jax(arch):
         _close_to_leaf_max(_np(got_g[k]), np.asarray(v, np.float32), LEAF_TOL, f"grad {k}")
 
     opt = TO.init_opt_state(params)
-    _, opt, m = TT.make_train_step(cfg, settings)(params, opt, tbatch)
+    _, opt, m = TT.make_train_step(cfg, settings=settings)(params, opt, tbatch)
     assert set(m) == set(jm) | {"total_loss"} == {"loss", "lb_loss", "z_loss", "drop_frac",
                                                   "grad_norm", "lr", "total_loss"}
     assert abs(float(m["grad_norm"]) - float(jm["grad_norm"])) <= 1e-5 * float(jm["grad_norm"])
