@@ -272,7 +272,20 @@ NCCL across ranks is not exercised):
       lm_serve's (phase 10); ms a decode step and wide frontier launches a
       step; then the mesh decode step's logits at every one of its 48
       positions, fed seeded random tokens, bitwise the one-device decode
-      step's on the same weights and inputs.
+      step's on the same weights and inputs;
+  M3. mesh_families: the other block families through the same mesh,
+      each run held bitwise to the same run on one device (run inside
+      ``uncounted()``): ``mesh_hybrid``, jamba-v0.1-52b's 8-layer period
+      at full width (the mesh prefill at b=4, s=2048: logits; then
+      ``serve_sharded --knn``: tokens; it does not train on the card, one
+      period's training state being ~213 GB), ``mesh_xlstm``, xlstm-1.3b
+      (all 48 layers through ``serve_sharded --knn``: tokens; 3 steps of
+      one 8-layer period at b=2 x 2048, f32: losses and grad norms), and
+      ``mesh_audio``, whisper-tiny (the forward at b=16 with 1,500 frames
+      and 448 tokens: logits; the cross K/V from the frames and 64 cached
+      decode steps: logits and tokens; 3 train steps: losses and grad
+      norms); ms, tokens/s, peak GB, the idle share of one run
+      (``device_busy``) and flash and wide launches by pass.
 
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
@@ -375,7 +388,25 @@ TRAIN_FULL = dict(
 # decode step's logits held bitwise to the one-device decode step's
 MESH_FULL = dict(train=dict(arch="qwen2.5-3b", smoke=False, b=2, s=2048,
                             opt=dict(lr=3e-4, warmup_steps=2, total_steps=100)),
-                 serve_argv=["--knn"])
+                 serve_argv=["--knn"],
+                 # M3: the other block families through the same mesh, each
+                 # held bitwise to one device: jamba-v0.1-52b's 8-layer
+                 # period (serving and the prefill; all 32 layers are 206
+                 # GB in f32, and one period's training state ~213 GB, so it
+                 # trains over gloo only), xlstm-1.3b at full depth served
+                 # and one 8-layer period trained, whisper-tiny at full size
+                 families=dict(
+                     hybrid=dict(arch="jamba-v0.1-52b", smoke=False, overrides={"n_layers": 8},
+                                 prefill_b=4, prefill_s=2048,
+                                 serve_argv=["--arch", "jamba-v0.1-52b", "--knn"]),
+                     xlstm=dict(arch="xlstm-1.3b", smoke=False, overrides={},
+                                serve_argv=["--arch", "xlstm-1.3b", "--knn"],
+                                train=dict(overrides={"n_layers": 8}, b=2, s=2048, steps=3,
+                                           opt=dict(lr=3e-4, warmup_steps=2,
+                                                    total_steps=100))),
+                     audio=dict(arch="whisper-tiny", smoke=False, b=16, frames=1500,
+                                tokens=448, decode_steps=64, train_steps=3,
+                                opt=dict(lr=3e-4, warmup_steps=2, total_steps=100))))
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
 H100_TF32_FLOP_PER_S = 495e12     # tensor cores, dense (H100 SXM data sheet)
@@ -3882,7 +3913,7 @@ def serve_sharded_phase(cfg: dict, device: str, mesh, lm_toks) -> dict:
                tokens_bitwise_lm_serve=True, sample=toks[0][:12].tolist(),
                wide_frontier_launches_per_step=c["frontier_wide"] / args.steps,
                frontier_launches_per_step=(c["frontier"] + c["frontier_pruned"]) / args.steps,
-               pruned_launches_per_step=c["frontier_pruned"] / args.steps)
+               pruned_launches_per_step=c["frontier_pruned"] / args.steps, launches=c)
     emit("serve_sharded", **out)
     return out
 
@@ -3932,14 +3963,297 @@ def sharded_decode_logits(cfg: dict, device: str, mesh) -> dict:
     return out
 
 
+def device_busy(fn, wall_ms: float, on_card: bool = True) -> dict:
+    """The card's busy ms in one ``fn()`` and its idle share of
+    ``wall_ms``: torch.profiler with the CUDA activity alone (no host-side
+    op records, whose cost on the ~10^5 launches of an xLSTM step
+    ``profile_train`` pays), the kernels' durations summed from kineto's
+    raw events.  None off the card."""
+    import torch
+    if not on_card:
+        fn()
+        return dict(device_busy_ms=None, device_idle_share=None)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+               if "CUDA" in str(ev.device_type()) and not ev.is_user_annotation()) / 1e6
+    return dict(device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / wall_ms))
+
+
+def mesh_config(fcfg: dict, **over):
+    """A family's config (full or smoke) with its overrides and ``over``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    base = smoke_config(fcfg["arch"]) if fcfg["smoke"] else get_config(fcfg["arch"])
+    return dataclasses.replace(base, **{**fcfg.get("overrides", {}), **over})
+
+
+def serve_both(phase: str, argv: list, mcfg, device: str, mesh) -> dict:
+    """``launch/serve``'s loop on one device (a check, outside the counts;
+    its weights freed after it) and ``serve_sharded`` on the mesh with the
+    same argv and seeded weights: tokens bitwise; ms a decode step and the
+    wide launches a step of the mesh run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    args = serve.parser().parse_args(argv + ["--device", device])
+    with uncounted():
+        params = M.init_params(mcfg, 0, device=device)
+        store = serve._build_store(args, mcfg, device)
+        want, one = serve.serve_loop(args, mcfg, params, store)
+        del params, store
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    c0 = stream_counts()
+    toks, store, timing = serve.serve_sharded(args, mcfg, mesh)
+    c = {k: v - c0[k] for k, v in stream_counts().items()}
+    check(np.array_equal(toks, want),
+          f"{phase}: serve_sharded tokens {toks[0][:12]} are not one device's {want[0][:12]}")
+    del store
+    return dict(batch=args.batch, prompt_len=args.prompt_len, steps=args.steps,
+                ms_per_decode_step=timing["ms_per_step"],
+                one_device_ms_per_decode_step=one["ms_per_step"], tokens_bitwise=True,
+                sample=toks[0][:12].tolist(),
+                wide_launches_per_step=c["frontier_wide"] / args.steps, launches=c)
+
+
+def prefill_both(phase: str, mcfg, model, batch: dict, device: str, mesh) -> dict:
+    """The prefill of ``batch`` on one device (a check, outside the counts;
+    its logits kept on the host) and through ``make_prefill_step``'s mesh form on
+    this rank's shards of the same weights (``ShardedLM.from_model``, which
+    shares every whole tensor): logits bitwise; ms, peak GB, the idle
+    share and the flash launches of the mesh run."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.parallel import ShardedLM
+    from repro_torch.serve.serve_step import make_prefill_step
+    on_card = device == "cuda"
+    _, _, wall = timers(on_card)
+    with uncounted():
+        want = make_prefill_step(mcfg)(model, batch).cpu()
+    sharded = ShardedLM.from_model(model, mcfg, mesh)
+    b, s = batch["tokens"].shape
+    fn, _ = make_prefill_step(mcfg, mesh, ShapeSpec("prefill", s, b, "prefill"))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    c0 = stream_counts()["flash"]
+    got, ms = wall(lambda: fn(sharded, batch))
+    flash = stream_counts()["flash"] - c0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"{phase}: the mesh prefill's logits are {err} from one device's (tolerance 0)")
+    del got, want
+    with uncounted():
+        again, ms2 = wall(lambda: fn(sharded, batch))
+        del again
+        where = device_busy(lambda: fn(sharded, batch), ms2 * 1e3, on_card)
+    return dict(b=b, s=s, ms=[ms * 1e3, ms2 * 1e3], peak_gb=peak_gb, flash_launches=flash,
+                max_abs_err=err, tolerance=0.0, **where)
+
+
+def train_both(phase: str, mcfg, mesh, batches: list, opt: dict, device: str) -> dict:
+    """The same steps from the same seeded weights on one device (a check,
+    outside the counts) and through the mesh form of ``make_train_step``
+    (``init_sharded``): every loss and grad norm bitwise.  Of the mesh run:
+    the first step (warm), the timed ones, the last profiled
+    (``device_busy``: its idle share), ms a step, tokens/s (the batch's
+    token count over the mean timed step), peak GB, flash launches a
+    step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import AdamWConfig
+    on_card = device == "cuda"
+    _, _, wall = timers(on_card)
+    settings = TT.TrainSettings(opt=AdamWConfig(**opt))
+    with uncounted():
+        params, state = TT.init_all(mcfg, 0, device=device)
+        step = TT.make_train_step(mcfg, settings=settings)
+        want = []
+        for bt in batches:
+            params, state, m = step(params, state, bt)
+            want.append((float(m["loss"]), float(m["grad_norm"])))
+        del params, state, step
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    (params, state), init_s = wall(lambda: TT.init_sharded(mcfg, mesh, 0, device=device))
+    step, _ = TT.make_train_step(mcfg, mesh, batches[0], settings)
+    held = {"opt": state}
+    hist = []
+
+    def run(i):
+        _, held["opt"], m = step(params, held["opt"], batches[i])
+        hist.append(m)
+
+    n = len(batches)
+    c0 = stream_counts()["flash"]
+    times = [wall(lambda i=i: run(i))[1] for i in range(n - 1)]
+    step_ms = float(np.mean(times[1:] or times)) * 1e3
+    where = device_busy(lambda: run(n - 1), step_ms, on_card)
+    flash_per_step = (stream_counts()["flash"] - c0) / n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    got = [(float(m["loss"]), float(m["grad_norm"])) for m in hist]
+    check(got == want, f"{phase}: mesh losses / grad norms {got} are not one device's {want}")
+    tokens = int(np.prod(batches[0]["tokens"].shape))
+    del params, held, state, hist
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(steps=n, init_seconds=init_s, warm_step_ms=times[0] * 1e3,
+                step_ms=[t * 1e3 for t in times[1:]], mean_step_ms=step_ms,
+                tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak_gb,
+                flash_launches_per_step=flash_per_step, losses=[g[0] for g in got],
+                grad_norms=[g[1] for g in got], bitwise_one_device=True, **where)
+
+
+def mesh_families(cfg: dict, device: str, mesh) -> dict:
+    """M3 on the one-rank mesh, each run held bitwise to the same run on one
+    device: jamba-v0.1-52b's 8-layer period (``serve_sharded --knn``, the
+    prefill at b x s; it does not train on the card: one period's
+    parameters, gradients and moments are ~213 GB at full width),
+    xlstm-1.3b (all 48 layers served through ``serve_sharded --knn``, steps
+    of one 8-layer period), whisper-tiny (the forward, the cross K/V from
+    the frames and cached decode steps, train steps).  Returns each
+    phase's record and the flash launches of its passes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.dist.parallel import ShardedLM
+    from repro_torch.models import encdec
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import make_decode_step
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    sync, _, wall = timers(on_card)
+    free = (lambda: torch.cuda.empty_cache()) if on_card else (lambda: None)
+    mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    tokens_of = lambda v, s, b, i: torch.from_numpy(synth_batch(DataConfig(
+        vocab_size=v, seq_len=s, global_batch=b), i)["tokens"]).to(dev)
+    out = {}
+
+    # jamba-v0.1-52b, one period: the prefill, then serving
+    t0 = time.perf_counter()
+    h = cfg["hybrid"]
+    mcfg = mesh_config(h)
+    model = M.init_params(mcfg, 0, device=device)
+    pre = prefill_both("mesh_hybrid", mcfg, model,
+                       {"tokens": tokens_of(mcfg.vocab_size, h["prefill_s"], h["prefill_b"], 0)},
+                       device, mesh)
+    del model
+    gc.collect()
+    free()
+    srv = serve_both("mesh_hybrid", h["serve_argv"], mcfg, device, mesh)
+    out["mesh_hybrid"] = dict(arch=mcfg.name, n_layers=mcfg.n_layers, mesh=mesh_shape,
+                              prefill=pre, serve=srv, trains=False,
+                              seconds=time.perf_counter() - t0)
+    emit("mesh_hybrid", **out["mesh_hybrid"])
+    gc.collect()
+    free()
+
+    # xlstm-1.3b: serving at full depth, then steps of one period
+    t0 = time.perf_counter()
+    x = cfg["xlstm"]
+    mcfg = mesh_config(x)
+    srv = serve_both("mesh_xlstm", x["serve_argv"], mcfg, device, mesh)
+    gc.collect()
+    free()
+    tx = x["train"]
+    tcfg = mesh_config(x, **tx["overrides"])
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(DataConfig(
+        vocab_size=tcfg.vocab_size, seq_len=tx["s"], global_batch=tx["b"]), i).items()}
+        for i in range(tx["steps"])]
+    trn = train_both("mesh_xlstm", tcfg, mesh, batches, tx["opt"], device)
+    trn.update(b=tx["b"], s=tx["s"], n_layers=tcfg.n_layers)
+    out["mesh_xlstm"] = dict(arch=mcfg.name, n_layers=mcfg.n_layers, mesh=mesh_shape,
+                             serve=srv, train=trn, seconds=time.perf_counter() - t0)
+    emit("mesh_xlstm", **out["mesh_xlstm"])
+    del batches
+    gc.collect()
+    free()
+
+    # whisper-tiny: the forward, the cached decode, then training
+    t0 = time.perf_counter()
+    a = cfg["audio"]
+    mcfg = mesh_config(a)
+    B, S_enc, S = a["b"], a["frames"], a["tokens"]
+    rng = np.random.default_rng(11)
+    frames = lambda: torch.from_numpy(rng.standard_normal(
+        (B, S_enc, mcfg.d_model)).astype(np.float32)).to(dev)
+    fw = {"frames": frames(), "tokens": tokens_of(mcfg.vocab_size, S, B, 0)}
+    model = M.init_params(mcfg, 0, device=device)
+    fwd = prefill_both("mesh_audio", mcfg, model, fw, device, mesh)
+    Ld = a["decode_steps"]
+    fed = torch.from_numpy(np.random.default_rng(9).integers(
+        0, mcfg.vocab_size, (B, Ld)).astype(np.int32)).to(dev)
+    with uncounted():
+        cache = encdec.encdec_prefill_cache(model, mcfg, fw["frames"],
+                                            M.init_cache(mcfg, B, S_enc, device=device))
+        want = []
+        for pos in range(Ld):
+            lg, cache = M.decode_step(model, mcfg, fed[:, pos], cache, pos)
+            want.append(lg)
+        del cache
+    sharded = ShardedLM.from_model(model, mcfg, mesh)
+    fn, sh = make_decode_step(mcfg, mesh, ShapeSpec("decode", S_enc, B, "decode"))
+    c0 = stream_counts()["flash"]
+    cache, cache_s = wall(lambda: sharded.prefill_cache(
+        fw["frames"], sharded.init_cache(B, S_enc, sh["cache"])))
+    per_cache = stream_counts()["flash"] - c0
+    sync()
+    t1 = time.perf_counter()
+    err, argmax_equal = 0.0, True
+    for pos in range(Ld):
+        tok, lg, cache = fn(sharded, fed[:, pos], cache, pos)
+        err = max(err, float((lg - want[pos]).abs().max()))
+        argmax_equal &= bool(torch.equal(tok, want[pos].argmax(-1).to(torch.int32)))
+    sync()
+    dec_ms = (time.perf_counter() - t1) * 1e3 / Ld
+    check(err == 0.0 and argmax_equal,
+          f"mesh_audio: the mesh decode's logits are {err} from one device's (tolerance 0)")
+    del model, sharded, cache, want, fw
+    gc.collect()
+    free()
+    batches = [{"frames": frames(), "tokens": tokens_of(mcfg.vocab_size, S, B, i),
+                "labels": torch.from_numpy(synth_batch(DataConfig(
+                    vocab_size=mcfg.vocab_size, seq_len=S, global_batch=B), i)["labels"]).to(dev)}
+               for i in range(a["train_steps"])]
+    trn = train_both("mesh_audio", mcfg, mesh, batches, a["opt"], device)
+    trn.update(b=B, frames=S_enc, tokens=S)
+    out["mesh_audio"] = dict(arch=mcfg.name, mesh=mesh_shape, forward=fwd,
+                             prefill_cache=dict(ms=cache_s * 1e3, flash_launches=per_cache),
+                             decode=dict(b=B, steps=Ld, ms_per_step=dec_ms, max_abs_err=err,
+                                         tolerance=0.0, tokens_bitwise=argmax_equal),
+                             train=trn, seconds=time.perf_counter() - t0)
+    emit("mesh_audio", **out["mesh_audio"])
+    del batches
+    gc.collect()
+    free()
+    return out
+
+
 def run_mesh(cfg: dict, device: str, t1: dict, lm_toks) -> dict:
     """The mesh path on a process group of one rank (NCCL on the card,
     gloo on the CPU; ``file://`` init in a temporary directory, destroyed
     at the end) and a (1, 1) {data, model} mesh, launch counts zeroed just
     before and read just after: M1 ``train_sharded``, M2
-    ``serve_sharded``; then M2's logits check (``sharded_decode_logits``,
-    which launches no kernel).  Returns its counts by kernel row and its
-    launches a pass."""
+    ``serve_sharded``, M3 ``mesh_families`` (whose one-device references
+    are checks, outside the counts); then M2's logits check
+    (``sharded_decode_logits``, which launches no kernel).  Returns its
+    counts by kernel row and its launches a pass."""
     import shutil
     import tempfile
 
@@ -3956,6 +4270,10 @@ def run_mesh(cfg: dict, device: str, t1: dict, lm_toks) -> dict:
         zero_counts()
         m1 = train_sharded(cfg["train"], device, mesh, t1)
         m2 = serve_sharded_phase(cfg, device, mesh, lm_toks)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        m3 = mesh_families(cfg["families"], device, mesh)
         c = stream_counts()
         sharded_decode_logits(cfg, device, mesh)
     finally:
@@ -3964,17 +4282,30 @@ def run_mesh(cfg: dict, device: str, t1: dict, lm_toks) -> dict:
     counts = dict(frontier=0, frontier_pruned=0, frontier_wide=c["frontier"],
                   frontier_wide_pruned=c["frontier_pruned"], distance=c["distance"],
                   flash=c["flash"])
-    emit("mesh_path_launches", **counts, seconds=time.perf_counter() - t0)
+    emit("mesh_path_launches", **counts, seconds=time.perf_counter() - t0,
+         m3_seconds={k: v["seconds"] for k, v in m3.items()})
     if device == "cuda":
         check(c["frontier_wide"] == c["frontier"] + c["frontier_pruned"],
               f"a narrow frontier launch on the mesh path: {c}")
         for name in ("frontier_wide", "frontier_wide_pruned", "flash"):
             check(counts[name] > 0, f"kernel {name} never launched on the mesh path")
         torch.cuda.empty_cache()
+    hy, xl, au = m3["mesh_hybrid"], m3["mesh_xlstm"], m3["mesh_audio"]
     return dict(counts=counts, per_pass=dict(
         train_step=m1["flash_launches_per_step"],
-        decode_step_knn=(c["frontier"]) / m2["steps"],
-        decode_step_knn_pruned=c["frontier_pruned"] / m2["steps"]))
+        decode_step_knn=m2["launches"]["frontier"] / m2["steps"],
+        decode_step_knn_pruned=m2["launches"]["frontier_pruned"] / m2["steps"],
+        hybrid_prefill=hy["prefill"]["flash_launches"],
+        hybrid_decode_step_knn=hy["serve"]["launches"]["frontier"] / hy["serve"]["steps"],
+        hybrid_decode_step_knn_pruned=(hy["serve"]["launches"]["frontier_pruned"]
+                                       / hy["serve"]["steps"]),
+        xlstm_decode_step_knn=xl["serve"]["launches"]["frontier"] / xl["serve"]["steps"],
+        xlstm_decode_step_knn_pruned=(xl["serve"]["launches"]["frontier_pruned"]
+                                      / xl["serve"]["steps"]),
+        xlstm_train_step=xl["train"]["flash_launches_per_step"],
+        audio_forward=au["forward"]["flash_launches"],
+        audio_prefill_cache=au["prefill_cache"]["flash_launches"],
+        audio_train_step=au["train"]["flash_launches_per_step"]))
 
 
 def with_families(rows: list, fam: dict) -> list:
@@ -3983,10 +4314,19 @@ def with_families(rows: list, fam: dict) -> list:
     rows, its launches per pass."""
     per_row = {"flash_attention_fwd": (("prefill_forward", "prefill_forward"),
                                        ("prefill_cache", "prefill_cache"),
-                                       ("step", "train_step")),
-               "frontier_scores[wide]": (("decode_step_knn", "decode_step_knn"),),
-               "frontier_scores[wide,parent_prune]": (("decode_step_knn",
-                                                       "decode_step_knn_pruned"),)}
+                                       ("step", "train_step"),
+                                       ("hybrid_prefill", "hybrid_prefill"),
+                                       ("xlstm_step", "xlstm_train_step"),
+                                       ("audio_forward", "audio_forward"),
+                                       ("audio_prefill_cache", "audio_prefill_cache"),
+                                       ("audio_step", "audio_train_step")),
+               "frontier_scores[wide]": (("decode_step_knn", "decode_step_knn"),
+                                         ("hybrid_decode_step_knn", "hybrid_decode_step_knn"),
+                                         ("xlstm_decode_step_knn", "xlstm_decode_step_knn")),
+               "frontier_scores[wide,parent_prune]": (
+                   ("decode_step_knn", "decode_step_knn_pruned"),
+                   ("hybrid_decode_step_knn", "hybrid_decode_step_knn_pruned"),
+                   ("xlstm_decode_step_knn", "xlstm_decode_step_knn_pruned"))}
     for phase, got in fam.items():
         rows = with_path(rows, got["counts"], phase)
         for row in rows:

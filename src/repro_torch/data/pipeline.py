@@ -53,6 +53,30 @@ def synth_batch(cfg: DataConfig, step: int, *, shard: int = 0,
     return out
 
 
+def model_batch(arch: ArchConfig, cfg: DataConfig, step: int) -> dict:
+    """``synth_batch``'s global batch at ``step`` with the inputs that
+    ``arch`` takes beside its tokens, each a pure function of (seed, step)
+    so that a resumed run sees the same batches: the vision stub's image
+    embeddings [b, n_img, D] (the tokens cut so that the sequence stays
+    ``seq_len`` long, the labels not), the encoder-decoder's frames [b,
+    seq_len, D] with its decoder's tokens and labels cut to
+    ``min(max_target_len, max(8, seq_len // 8))``, as ``batches_for``
+    shapes them.  A text-only model's batch is ``synth_batch``'s."""
+    batch = synth_batch(cfg, step)
+    if arch.frontend != "vision_stub" and not arch.is_encdec:
+        return batch
+    rng = np.random.default_rng([cfg.seed, step])
+    b = cfg.global_batch
+    if arch.is_encdec:
+        dec = min(arch.max_target_len, max(8, cfg.seq_len // 8))
+        return {"frames": rng.standard_normal((b, cfg.seq_len, arch.d_model), np.float32),
+                "tokens": batch["tokens"][:, :dec], "labels": batch["labels"][:, :dec]}
+    n_img = arch.n_image_tokens
+    return {"tokens": batch["tokens"][:, :cfg.seq_len - n_img],
+            "image_embeds": rng.standard_normal((b, n_img, arch.d_model), np.float32),
+            "labels": batch["labels"]}
+
+
 def batches_for(cfg: ArchConfig, shape: ShapeSpec, *, seed=0):
     """Iterator of global batches matching the model's input_specs."""
     dc = DataConfig(seed=seed, vocab_size=cfg.vocab_size,

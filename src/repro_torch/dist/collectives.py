@@ -186,3 +186,83 @@ class _LogSumExp(torch.autograd.Function):
     def backward(ctx, g):
         x, out = ctx.saved_tensors
         return g.unsqueeze(-1) * (x - out.unsqueeze(-1)).exp(), None
+
+
+class _GatherSlice(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward, this rank's chunk of the
+    gradient (Megatron's gather before a computation that every rank of
+    the group repeats whole, whose gradients are then equal on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        return g.narrow(ctx.dim, dist.get_rank(ctx.group) * n, n), None, None
+
+
+def gather_whole(x, dim: int, group):
+    return _GatherSlice.apply(x, dim, group)
+
+
+def _halves_plan(n: int, r: int, e: int):
+    """The exchange of ``regroup_halves`` at rank ``r`` of ``n``: the order
+    in which to send this rank's two half-blocks (0 and 1) and the rows
+    sent to and received from each rank.  Half-block u of the fused
+    projection's 2n half-blocks goes to rank u % n; rank r holds u = 2r,
+    2r + 1 and receives u = r (its slice of the first half) and n + r (of
+    the second), the first from rank r // 2 and the second from rank
+    (n + r) // 2, in that (rank) order."""
+    dest = ((2 * r) % n, (2 * r + 1) % n)
+    order = (0, 1) if dest[0] <= dest[1] else (1, 0)
+    send = [e * sum(d == q for d in dest) for q in range(n)]
+    recv = [e * sum(u // 2 == s for u in (r, n + r)) for s in range(n)]
+    return order, send, recv
+
+
+def _exchange(t, send, recv, group):
+    out = torch.empty((sum(recv),) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.all_to_all_single(out, t.contiguous(), output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    return out
+
+
+class _RegroupHalves(torch.autograd.Function):
+    """A fused column-parallel projection regrouped (``regroup_halves``);
+    backward, the same exchange reversed."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        c = y.shape[-1]
+        if c % 2:
+            raise ValueError(f"a rank's block of a fused projection has an odd width {c}")
+        order, send, recv = _halves_plan(n, r, c // 2)
+        ctx.group, ctx.plan = group, (order, send, recv)
+        t = y.movedim(-1, 0)
+        if order != (0, 1):
+            t = torch.cat([t[c // 2:], t[:c // 2]])
+        return _exchange(t, send, recv, group).movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        order, send, recv = ctx.plan
+        t = _exchange(g.movedim(-1, 0), recv, send, ctx.group)
+        if order != (0, 1):
+            e = t.shape[0] // 2
+            t = torch.cat([t[e:], t[:e]])
+        return t.movedim(0, -1), None
+
+
+def regroup_halves(y, group):
+    """``y`` [..., c]: this rank's block of columns of a fused projection
+    [..., 2 n_cols] whose halves are two tensors (Mamba's x | z, the xLSTM
+    blocks' up-projections), split column-parallel over ``group`` in
+    contiguous blocks, so that at two ranks rank 0 holds the whole first
+    half and rank 1 the whole second.  -> [..., c]: this rank's slice of
+    the first half, then of the second, each c / 2 wide (rank r's columns
+    r * c / 2 ... of each half), by one all-to-all of the local product."""
+    return _RegroupHalves.apply(y, group)

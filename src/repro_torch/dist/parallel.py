@@ -1,130 +1,132 @@
-"""The sharded runtime of the decoder LM over a {data, model} ``DeviceMesh``:
+"""The sharded runtime of the models over a {data, model} ``DeviceMesh``:
 what the reference leaves to GSPMD, written out with ``torch.distributed``
 collectives on each rank's local shards (dist/sharding.py's table).
 
-  * Tensor parallelism over 'model' (Megatron): attention by query head
-    (``wq``/``bq``/``wo``; ``wk``/``wv`` replicated, every rank repeating
-    the K/V heads as the one-device model does and taking its own heads'
-    slice), the FFN by its hidden dim (column-parallel ``wi``/``wg``,
-    row-parallel ``wo``: one all-reduce after the row-parallel product),
-    the embedding and tied head by vocab row (a masked lookup plus an
-    all-reduce; the cross-entropy's max and sum all-reduced over 'model').
-    Weights that the table replicates but a sharded layer reads (``wk``,
-    ``wv``, their biases, a column-parallel layer's bias) pass through
-    ``copy_to`` (identity forward, all-reduce backward), so their
-    gradients are whole on every rank.
-  * Sequence parallelism (``sharding.set_sequence_parallel``): the
-    residual stream stays split along the sequence over 'model' between
-    layers; an all-gather enters each sharded layer and a reduce-scatter
-    leaves it, and the norms' weights, which then see a slice of the
-    sequence, pass through ``copy_to``.
-  * FSDP over 'data': a leaf that the table shards over 'data' is
-    all-gathered along that dim where a layer reads it (backward: a
-    reduce-scatter, the sum over the data ranks), inside the layer's
-    period, so remat gathers it again in the backward rather than keeping
-    it.
-  * The flash kernel is a custom op with no sharding rule: it gets this
-    rank's local ``[b/dp, H/tp, s, dh]`` tensors.
-  * Decode: the KV cache is split along the sequence as the table says
+One body of code runs both paths.  ``ShardedLM`` holds this rank's
+shards, their specs and full shapes, and hands the one-device model's own
+functions (``transformer.lm_forward`` / ``lm_decode_step``,
+``encdec.encdec_forward`` / ``encdec_decode_step`` and every block
+function under them) two things: a view of its shards shaped like the
+one-device model (``_View``: ``view.blocks[3].mixer.wq`` is this rank's
+shard of that weight, all-gathered over 'data' where the table shards it
+there, FSDP, inside the layer's period, so remat gathers it again in the
+backward rather than keeping it), and the mesh context ``dist.tp.TP``,
+through which each layer enters and leaves its sharded region.  What the
+layers do on the mesh, by kind (the choices are in each module's
+docstring):
+
+  * attention by query head (Megatron: ``wq``/``bq``/``wo``; ``wk``/``wv``
+    replicated, every rank repeating the K/V heads as the one-device model
+    does and taking its own heads'), the whisper encoder's, decoder's and
+    cross-attention alike; the FFN by its hidden dim (column-parallel
+    ``wi``/``wg``, row-parallel ``wo``); the MoE FFN expert-parallel over
+    'data' (``moe_apply_ep``) where the config asks for it, else the whole
+    batch's dense dispatch over 'data', the experts' hidden dim over
+    'model' either way;
+  * Mamba over d_inner: the conv, the scan, ``dt_proj``, ``A_log`` and
+    ``D`` on this rank's channels, ``x_proj`` and ``out_proj`` row-
+    parallel, the fused ``in_proj`` regrouped by an all-to-all of its
+    local product (models/ssm.py);
+  * mLSTM over d_x (heads whole on a rank, or a head's columns gathered
+    where it spans ranks) and sLSTM, its gate pre-activations gathered
+    once before its loop, which every rank runs whole (models/xlstm.py);
+  * the embedding and head by vocab row (a masked lookup plus an all-
+    reduce; the cross-entropy's max and sum all-reduced over 'model'),
+    the vision stub's image embeddings joining before the reduction;
+  * sequence parallelism (``sharding.set_sequence_parallel``) for the
+    attention-only decoders: the residual stream split along the sequence
+    (image positions included) between layers, an all-gather entering
+    each sharded layer and a reduce-scatter leaving it;
+  * the flash kernel gets this rank's local ``[b/dp, H/tp, s, dh]``
+    tensors;
+  * decode: a KV cache split along the sequence as the table says
     (``cache_pspecs``: over 'model' where it divides, and with
-    ``seq_shard`` over the free dp axes too); each rank attends with every
-    query head over its own positions (``attention_plain.
-    decode_attention`` on the slice) and the partial softmaxes merge by
-    log-sum-exp over each axis of the split (a MAX then a SUM all-reduce),
-    after which each rank keeps its heads for the row-parallel output
-    projection.
-  * The layers run through ``transformer.run_periods``, the one-device
-    trunk's period loop, and the MLP's activation is ``layers.
-    mlp_hidden``'s.
+    ``seq_shard`` over the free dp axes too), every query head attending
+    over this rank's positions and the partial softmaxes merged by log-
+    sum-exp over each axis of the split; the recurrent states split along
+    their largest inner dim, which for Mamba is the weights' split and for
+    the xLSTM cells is regrouped at the step.
 
 At world size 1 every collective is an identity and every divisor 1.0, and
-each function here runs the one-device model's operations in its order
-(``models/transformer.py``), so a one-rank step equals the one-device step
-bitwise.  Block kinds: ``attn`` and ``attn_moe`` (the MoE FFN expert-
-parallel over 'data' through ``models/moe.py:moe_apply_ep`` when the
-config asks for it, else the whole batch's dense dispatch over 'data';
-the experts' hidden dim over 'model' either way); the tensor-parallel
-runtime of the Mamba, xLSTM and encoder-decoder blocks is not ported yet
-(ROADMAP Queue 1 item 17, its next part).
+the one-device code runs in its own order, so a one-rank step equals the
+one-device step bitwise.
 """
 from __future__ import annotations
 
-import dataclasses
-import types
-
 import torch
-import torch.distributed as dist
 
 from repro_torch.dist import sharding as shd
-from repro_torch.dist.collectives import (_LogSumExp, all_gather, all_reduce_, copy_to,
-                                          gather_from, reduce_from, scatter_to)
-from repro_torch.kernels.attention_plain import decode_attention
-from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import apply_norm, dense, mlp_hidden
-from repro_torch.models.transformer import _span, aux_means, run_periods
+from repro_torch.dist.collectives import _LogSumExp, all_gather, gather_from, reduce_from
+from repro_torch.dist.tp import TP, Ranks, _axis_dim
 
-SUPPORTED_KINDS = ("attn", "attn_moe")
+__all__ = ["Ranks", "ShardedLM"]
 
 
-# ---------------------------------------------------------------------------
-# the mesh as this rank sees it
-# ---------------------------------------------------------------------------
-@dataclasses.dataclass
-class Ranks:
-    """A {data, model} ``DeviceMesh`` from this rank: its two groups, their
-    sizes and this rank's coordinate in each."""
-    data: object
-    model: object
-    dp: int
-    tp: int
-    dr: int
-    mr: int
+class _View:
+    """A module of the one-device model (``meta``, its twin on the meta
+    device) as this rank's layer reads it: a parameter is this rank's
+    shard (``ShardedLM._fsdp``), a submodule another view, any other
+    attribute the module's own.  Made afresh where a layer runs, so what
+    it caches lives as long as that call."""
 
-    @classmethod
-    def of(cls, mesh) -> Ranks:
-        names = tuple(mesh.mesh_dim_names or ())
-        if names != ("data", "model"):
-            raise ValueError(f"the sharded runtime takes a ('data', 'model') mesh, not {names}")
-        sizes = shd._mesh_sizes(mesh)
-        return cls(mesh.get_group("data"), mesh.get_group("model"),
-                   sizes["data"], sizes["model"], mesh.get_local_rank("data"),
-                   mesh.get_local_rank("model"))
+    def __init__(self, lm: ShardedLM, meta, prefix: str):
+        self._lm, self._meta, self._prefix = lm, meta, prefix
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        v = getattr(self._meta, name)
+        key = self._prefix + name
+        if isinstance(v, torch.nn.Module):
+            v = _View(self._lm, v, key + ".")
+        elif isinstance(v, torch.Tensor):
+            v = self._lm._fsdp(key)
+        self.__dict__[name] = v
+        return v
+
+    def __getitem__(self, i: int):
+        return _View(self._lm, self._meta[i], f"{self._prefix}{i}.")
+
+    def __len__(self):
+        return len(self._meta)
+
+    @property
+    def _sharded(self) -> bool:
+        """Whether the table splits this module's weights over 'model'."""
+        return self._lm._module_sharded(self._prefix)
+
+    def _split(self, name: str) -> bool:
+        return self._lm._sharded(self._prefix + name)
+
+    def _raw(self, name: str):
+        """The local shard itself, not gathered over 'data' (the experts
+        of the expert-parallel MoE)."""
+        return self._lm.params[self._prefix + name]
 
 
-def _axis_dim(spec, axis: str):
-    """The tensor dim whose entry names ``axis``, or None."""
-    return next((d for d, e in enumerate(spec) if axis in shd._axes_of(e)), None)
-
-
-# ---------------------------------------------------------------------------
-# the sharded decoder LM
-# ---------------------------------------------------------------------------
 class ShardedLM:
-    """A decoder LM's parameters as this rank's local shards, keyed by the
-    port's parameter names (``transformer.LM``), with the table's per-layer
-    specs (``sharding.layer_specs``) and the full shapes.  ``rows_split``
-    says whether the batch rows are split over 'data' (the table's input
-    spec), which the expert-parallel MoE needs to know."""
+    """A model's parameters (a ``transformer.LM`` or an ``encdec.EncDec``)
+    as this rank's local shards, keyed by the port's parameter names, with
+    the table's per-layer specs (``sharding.layer_specs``) and the full
+    shapes.  ``rows_split`` says whether the batch rows are split over
+    'data' (the table's input spec), which the expert-parallel MoE needs to
+    know; ``sp`` whether the last forward ran sequence parallel."""
 
     def __init__(self, cfg, mesh, params: dict, specs: dict, shapes: dict):
-        kinds = set(cfg.block_pattern)
-        if cfg.is_encdec or not kinds <= set(SUPPORTED_KINDS):
-            raise NotImplementedError(
-                f"the tensor-parallel runtime of {sorted(kinds - set(SUPPORTED_KINDS)) or 'enc-dec'}"
-                " blocks is not ported yet (ROADMAP Queue 1 item 17, its next part)")
-        if cfg.frontend == "vision_stub":
-            raise NotImplementedError("the sharded runtime feeds tokens only")
+        from repro_torch.models.model import param_specs
         self.cfg, self.mesh, self.r = cfg, mesh, Ranks.of(mesh)
         self.params, self.specs, self.shapes = params, specs, shapes
+        self.meta = param_specs(cfg)
         self.sp = False
         self.rows_split = False
         self.cache_specs = None
+        self._split_names = {n for n in params if _axis_dim(specs[n], "model") is not None}
+        self._modules: dict = {}
 
     @classmethod
     def from_model(cls, model, cfg, mesh, *, requires_grad: bool = False) -> ShardedLM:
-        """This rank's shards of a full model (a ``transformer.LM``): its
-        tensors are shared where the shard is the whole tensor, copied
-        otherwise."""
+        """This rank's shards of a full model: its tensors are shared where
+        the shard is the whole tensor, copied otherwise."""
         specs = shd.layer_specs(cfg, model, mesh)
         params, shapes = {}, {}
         for name, p in model.named_parameters():
@@ -146,202 +148,79 @@ class ShardedLM:
 
     # -- reading the weights ------------------------------------------------
     def _sharded(self, name: str) -> bool:
-        return _axis_dim(self.specs[name], "model") is not None
+        return name in self._split_names
+
+    def _module_sharded(self, prefix: str) -> bool:
+        if prefix not in self._modules:
+            self._modules[prefix] = any(n.startswith(prefix) for n in self._split_names)
+        return self._modules[prefix]
 
     def _fsdp(self, name: str):
         """A weight as its layer reads it: gathered over 'data' where the
         table shards it there (FSDP)."""
-        t = self.params.get(name)
-        if t is None:
-            return None
+        t = self.params[name]
         d = _axis_dim(self.specs[name], "data")
         return t if d is None else gather_from(t, d, self.r.data)
 
-    def _rep(self, name: str, through: bool):
-        """A weight that the table replicates over 'model', through
-        ``copy_to`` when ``through`` (read inside a sharded layer, or on a
-        slice of the sequence), so its gradient is whole."""
-        t = self._fsdp(name)
-        return copy_to(t, self.r.model) if t is not None and through else t
+    def view(self) -> _View:
+        """The whole model as this rank's layers read it."""
+        return _View(self, self.meta, "")
 
-    def _col_bias(self, name: str, width: int, sharded: bool):
-        """A column-parallel layer's bias (replicated by the table): its
-        ``width`` columns of this rank."""
-        b = self._rep(name, sharded)
-        if b is None or b.shape[-1] == width:
-            return b
-        return b[..., self.r.mr * width:(self.r.mr + 1) * width]
-
-    def _norm(self, prefix: str, x):
-        return apply_norm(self._rep(f"{prefix}.scale", self.sp),
-                          self._rep(f"{prefix}.bias", self.sp), x, self.cfg.norm,
-                          self.cfg.norm_eps)
-
-    # -- entering and leaving a sharded layer -------------------------------
-    def _enter(self, h, sharded: bool):
-        if self.sp:
-            return gather_from(h, 1, self.r.model)
-        return copy_to(h, self.r.model) if sharded else h
-
-    def _leave(self, y, sharded: bool):
-        if self.sp:
-            return scatter_to(y, 1, self.r.model)
-        return reduce_from(y, self.r.model) if sharded else y
+    def _tp(self, *, cache_spec=None) -> TP:
+        return TP(self.r, self.mesh, sp=self.sp, rows_split=self.rows_split,
+                  cache_spec=cache_spec)
 
     def _head_sharded(self) -> bool:
-        return self._sharded("embed" if self.cfg.tie_embeddings else "lm_head.w")
+        return self._sharded("lm_head.w" if "lm_head.w" in self.params else "embed")
 
     def _check_sequence_parallel(self, seq_len: int) -> None:
         cfg, r = self.cfg, self.r
         whole = [n for n in self.params if n.endswith(("mixer.wq", "ffn.wi.w"))
                  and not self._sharded(n)]
-        if set(cfg.block_pattern) != {"attn"} or whole or seq_len % r.tp \
+        if cfg.is_encdec or set(cfg.block_pattern) != {"attn"} or whole or seq_len % r.tp \
                 or not self._sharded("embed") or not self._head_sharded():
             raise ValueError(
-                "sequence parallelism needs attention blocks whose heads, FFN, vocab "
-                f"and sequence ({seq_len}) the model axis ({r.tp}) divides")
+                "sequence parallelism needs a decoder of attention blocks whose heads, FFN, "
+                f"vocab and sequence ({seq_len}) the model axis ({r.tp}) divides")
 
-    # -- layers -------------------------------------------------------------
+    # -- the embedding ------------------------------------------------------
     def embed_tokens(self, tokens):
-        """Vocab-parallel lookup: tokens [b, s] -> [b, s, D] in the
-        residual stream's layout (this rank's slice of the sequence under
-        sequence parallelism)."""
+        """Vocab-parallel lookup: tokens [b, s] -> [b, s, D], whole over
+        'model'."""
         dt = getattr(torch, self.cfg.compute_dtype)
-        table = self.params["embed"]
-        if not self._sharded("embed"):
-            return self._seq_slice(table[tokens], 1).to(dt)
-        n = table.shape[0]
-        idx = tokens - self.r.mr * n
-        ok = (idx >= 0) & (idx < n)
-        e = torch.where(ok[..., None], table[idx.clamp(0, n - 1)], 0.0)
-        return self._leave(e, True).to(dt)
-
-    def _seq_slice(self, y, dim: int):
-        if not self.sp:
-            return y
-        n = y.shape[dim] // self.r.tp
-        return y.narrow(dim, self.r.mr * n, n)
-
-    def _attention_weights(self, pre: str, sharded: bool):
-        wq = self._fsdp(f"{pre}.wq")
-        hl = wq.shape[1]
-        return types.SimpleNamespace(
-            wq=wq, wk=self._rep(f"{pre}.wk", sharded), wv=self._rep(f"{pre}.wv", sharded),
-            wo=self._fsdp(f"{pre}.wo"), bq=self._fsdp(f"{pre}.bq"),
-            bk=self._rep(f"{pre}.bk", sharded), bv=self._rep(f"{pre}.bv", sharded),
-            lo=self.r.mr * hl if sharded else 0, hl=hl)
-
-    def attention(self, layer: int, h, pos, attention=None):
-        """Causal attention on this rank's heads: h [b, s, D] (the whole
-        sequence) -> this rank's partial [b, s, D]."""
-        pre = f"blocks.{layer}.mixer"
-        p = self._attention_weights(pre, self._sharded(f"{pre}.wq"))
-        return attn_mod.attn_apply(p, self.cfg, h, pos=pos, attention=attention, lo=p.lo)
-
-    def mlp(self, pre: str, h):
-        """The MLP under ``pre`` on its local hidden columns: -> (this
-        rank's partial output before the row-parallel bias, sharded?)."""
-        wi = self._fsdp(f"{pre}.wi.w")
-        fl, sharded = wi.shape[-1], self._sharded(f"{pre}.wi.w")
-        bi = lambda n: self._col_bias(f"{pre}.{n}.b", fl, sharded)
-        wg = self._fsdp(f"{pre}.wg.w")
-        a = mlp_hidden(h, lambda x: dense(wi, bi("wi"), x),
-                       None if wg is None else (lambda x: dense(wg, bi("wg"), x)))
-        return dense(self._fsdp(f"{pre}.wo.w"), None, a)
-
-    def ffn(self, pre: str, h):
-        """An MLP as a layer: h (residual layout) -> its output, whole (or
-        this rank's sequence slice), its row-parallel bias added after the
-        reduction, in the one-device ``h @ wo + b`` order."""
-        sharded = self._sharded(f"{pre}.wi.w")
-        y = self._leave(self.mlp(pre, self._enter(h, sharded)), sharded)
-        b = self._rep(f"{pre}.wo.b", self.sp)
-        return y if b is None else y + b.to(y.dtype)
-
-    def moe(self, layer: int, h, capacity=None):
-        """The MoE FFN on this rank's tokens (h whole over 'model'):
-        expert-parallel over 'data' (``moe_apply_ep``) where the config and
-        the batch allow it, else the whole batch's dense dispatch
-        (``moe_apply(data_group=)``) with every expert gathered; the
-        experts' hidden dim over 'model' either way."""
-        from repro_torch.models import moe as moe_mod
-        cfg, r = self.cfg, self.r
-        pre = f"blocks.{layer}.ffn"
-        model_group = r.model if self._sharded(f"{pre}.wi") else None
-        ep = (cfg.moe_ep and capacity is None and self.rows_split
-              and moe_mod.ep_applies(cfg, h.shape[0] * r.dp, r.data))
-        # decode's dropless capacity is local; training's is the batch's
-        data_group = r.data if capacity is None and self.rows_split and r.dp > 1 else None
-        get = (lambda n: self.params[n]) if ep else self._fsdp
-        p = types.SimpleNamespace(router=self._fsdp(f"{pre}.router"), wi=get(f"{pre}.wi"),
-                                  wg=get(f"{pre}.wg"), wo=get(f"{pre}.wo"), shared=None)
-        if ep:
-            y, aux = moe_mod.moe_apply_ep(p, cfg, h, capacity, group=r.data,
-                                          model_group=model_group)
-        else:
-            y, aux = moe_mod.moe_apply(p, cfg, h, capacity, model_group=model_group,
-                                       data_group=data_group)
-        if f"{pre}.shared.wi.w" in self.params:
-            y = y + self.ffn(f"{pre}.shared", h)
-        return y, aux
-
-    def block(self, layer: int, x, pos, attention=None):
-        """One pre-norm block -> (x, aux or None); x in the residual
-        stream's layout."""
-        cfg = self.cfg
-        kind = cfg.block_pattern[layer % len(cfg.block_pattern)]
-        h = self._norm(f"blocks.{layer}.norm1", x)
-        sharded = self._sharded(f"blocks.{layer}.mixer.wq")
-        with _span("attn"):
-            x = x + self._leave(self.attention(layer, self._enter(h, sharded), pos, attention),
-                                sharded)
-        h = self._norm(f"blocks.{layer}.norm2", x)
-        if kind == "attn_moe":
-            with _span("moe"):
-                y, aux = self.moe(layer, h)
-            return x + y, aux
-        if cfg.d_ff == 0:
-            return x, None
-        with _span("mlp"):
-            return x + self.ffn(f"blocks.{layer}.ffn", h), None
-
-    def head(self, x):
-        """Final-normed hidden states -> this rank's vocab slice of the
-        logits."""
-        x = self._enter(x, self._head_sharded())
-        if self.cfg.tie_embeddings:
-            return x @ self.params["embed"].T.to(x.dtype)
-        return dense(self._fsdp("lm_head.w"), None, x)
+        tokens = torch.as_tensor(tokens, device=self.params["embed"].device).long()
+        return TP(self.r, self.mesh).embed(self.view(), tokens, dt)
 
     def vocab_lo(self) -> int:
         """The first vocab id of this rank's slice of the logits."""
         if not self._head_sharded():
             return 0
-        t = self.params["embed"] if self.cfg.tie_embeddings else self.params["lm_head.w"]
-        return self.r.mr * t.shape[0 if self.cfg.tie_embeddings else -1]
+        if "lm_head.w" in self.params:
+            return self.r.mr * self.params["lm_head.w"].shape[-1]
+        return self.r.mr * self.params["embed"].shape[0]
 
     # -- full-sequence forward ------------------------------------------------
-    def forward(self, tokens, *, remat: bool = False, attention=None,
+    def forward(self, batch, *, remat: bool = False, attention=None,
                 rows_split: bool = False):
-        """tokens [b, s] (this rank's rows; ``rows_split`` if they are a
-        split of the batch over 'data') -> (this rank's vocab slice of the
-        logits [b, s, V/tp], aux), as ``transformer.lm_forward``: layers by
-        period of the block pattern, each period one activation checkpoint
-        with ``remat`` while autograd records."""
+        """batch: this rank's rows (``rows_split`` if they are a split of
+        the batch over 'data') of the model's inputs (``{"tokens"}``, plus
+        ``image_embeds`` for the vision stub; ``{"frames", "tokens"}`` for
+        the encoder-decoder), or the tokens alone -> (this rank's vocab
+        slice of the logits [b, s, V/tp], aux), the one-device forward
+        (``models.model.forward``) on this rank's shards."""
+        from repro_torch.models import encdec, transformer
         cfg = self.cfg
-        tokens = torch.as_tensor(tokens, device=self.params["embed"].device).long()
+        dev = self.params["embed"].device
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         self.rows_split = rows_split
         self.sp = shd.sequence_parallel() and self.r.tp > 1
         if self.sp:
-            self._check_sequence_parallel(tokens.shape[1])
-        x = self.embed_tokens(tokens)
-        b, s = tokens.shape
-        pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        if cfg.pos_embedding == "learned":
-            x = x + self._seq_slice(self._rep("pos_embed", self.sp)[:s], 0).to(x.dtype)
-        x, sums = run_periods(cfg, x, lambda layer, x: self.block(layer, x, pos, attention),
-                              remat)
-        return self.head(self._norm("final_norm", x)), aux_means(cfg, sums)
+            n_img = batch["image_embeds"].shape[1] if "image_embeds" in batch else 0
+            self._check_sequence_parallel(batch["tokens"].shape[1] + n_img)
+        fwd = encdec.encdec_forward if cfg.is_encdec else transformer.lm_forward
+        return fwd(self.view(), cfg, batch, remat=remat, _attention=attention, tp=self._tp())
 
     def loss_fn(self, logits, labels, mask):
         """``models.model.loss_fn`` on this rank's vocab slice: the
@@ -361,87 +240,49 @@ class ShardedLM:
         return nll.sum() / mask.sum().clamp_min(1)
 
     # -- cached decode --------------------------------------------------------
-    def init_cache(self, batch: int, length: int, specs: list, dtype=None):
+    def init_cache(self, batch: int, length: int, specs, dtype=None):
         """This rank's decode cache of a ``batch``-row batch (the whole
-        batch's row count) of ``length`` positions, split as ``specs`` says
-        (``make_decode_step``'s ``shardings["cache"]``, the table's
-        ``layer_cache_specs``): each layer's ``{"kv": (k, v)}``."""
-        from repro_torch.models import transformer
+        batch's row count) of ``length`` positions (the encoder's, for the
+        encoder-decoder), split as ``specs`` says (``make_decode_step``'s
+        ``shardings["cache"]``): ``models.model.init_cache``'s tree of
+        this rank's slices."""
+        from repro_torch.models import encdec, transformer
         dev = self.params["embed"].device
-        full = transformer.init_cache(self.cfg, batch, length, dtype, device="meta")
+        make = encdec.encdec_init_cache if self.cfg.is_encdec else transformer.init_cache
+        full = make(self.cfg, batch, length, dtype, device="meta")
         self.cache_specs = specs
 
-        def make(t, spec):
+        def local(spec, t):
             sl = shd.local_slices(spec, t.shape, self.mesh)
             return torch.zeros(tuple(x.stop - x.start for x in sl), dtype=t.dtype, device=dev)
 
-        return [{"kv": tuple(make(t, s) for t, s in zip(c["kv"], sp["kv"]))}
-                for c, sp in zip(full, specs)]
+        return shd._map_specs(local, specs, full)
 
-    def _decode_attention(self, layer: int, h, kv, pos_scalar: int):
-        """One position's attention (``attn_decode``'s operations): every
-        query head over this rank's slice of the sequence, the cache split
-        over the axes its spec names there ('model', and under
-        ``seq_shard`` the free dp axes too), or whole; the partial softmaxes
-        merge by log-sum-exp over each of those axes (``decode_attention``'s
-        max, then its sums, all-reduced).  Then this rank's heads go into
-        the row-parallel output projection."""
-        cfg, r = self.cfg, self.r
-        pre = f"blocks.{layer}.mixer"
-        sharded = self._sharded(f"{pre}.wq")
-        p = self._attention_weights(pre, sharded)
-        b, dev = h.shape[0], h.device
-        pos = torch.full((b, 1), pos_scalar, dtype=torch.int32, device=dev)
-        q, k, v = attn_mod._project_qkv(p, cfg, h, pos)
-        if sharded:
-            q = all_gather(q, 1, r.model)                 # every query head
-        ck, cv = kv
-        seq = shd._axes_of(self.cache_specs[layer]["kv"][0][2])
-        S = ck.shape[2]
-        lo = shd.shard_index(seq, self.mesh)[0] * S
-        idx = torch.arange(lo, lo + S, device=dev)
-        hit = (idx == pos_scalar)[None, None, :, None]
-        ck = torch.where(hit, k.to(ck.dtype), ck)
-        cv = torch.where(hit, v.to(cv.dtype), cv)
-        kv_len = torch.full((b,), pos_scalar + 1, dtype=torch.int32, device=dev)
-        groups = [self.mesh.get_group(a) for a in seq]
-        ops_ = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
-
-        def merge(t, op):
-            for g in groups:
-                all_reduce_(t, g, ops_[op])
-
-        out = decode_attention(q, ck.to(q.dtype), cv.to(q.dtype), kv_len=kv_len,
-                               positions=idx, merge=merge if groups else None)
-        if sharded:
-            out = out[:, p.lo:p.lo + p.hl]
-        y = attn_mod._out_proj(p, attn_mod._head_mask(cfg, out, p.lo))
-        return (reduce_from(y, r.model) if sharded else y), (ck, cv)
+    @torch.no_grad()
+    def prefill_cache(self, frames, cache: dict) -> dict:
+        """The encoder-decoder's cross-attention K/V from this rank's rows
+        of ``frames`` (``encdec.encdec_prefill_cache``), this rank's slice
+        of the frames where the cache's spec splits them."""
+        from repro_torch.models import encdec
+        self.sp = False
+        frames = torch.as_tensor(frames, device=self.params["embed"].device)
+        return encdec.encdec_prefill_cache(self.view(), self.cfg, frames, cache,
+                                           tp=self._tp(cache_spec=self.cache_specs))
 
     @torch.no_grad()
     def decode_step(self, token, cache, pos_scalar: int, *, rows_split: bool = False):
         """token [b] (this rank's rows) -> (logits [b, V] whole, gathered
-        over 'model'; the new cache), as ``transformer.lm_decode_step``."""
-        cfg = self.cfg
+        over 'model'; the new cache), the one-device decode step
+        (``models.model.decode_step``) on this rank's shards and cache."""
+        from repro_torch.models import encdec, transformer
         self.sp, self.rows_split = False, rows_split
-        token = torch.as_tensor(token, device=self.params["embed"].device).long()
-        x = self.embed_tokens(token[:, None])
-        if cfg.pos_embedding == "learned":
-            x = x + self.params["pos_embed"][pos_scalar][None, None].to(x.dtype)
-        new_cache = []
-        for layer, c in enumerate(cache):
-            kind = cfg.block_pattern[layer % len(cfg.block_pattern)]
-            h = self._norm(f"blocks.{layer}.norm1", x)
-            y, kv = self._decode_attention(layer, h, c["kv"], pos_scalar)
-            x = x + y
-            new_cache.append({"kv": kv})
-            h = self._norm(f"blocks.{layer}.norm2", x)
-            if kind == "attn_moe":
-                # dropless at decode: at worst every token routes to one expert
-                x = x + self.moe(layer, h, capacity=x.shape[0])[0]
-            elif cfg.d_ff:
-                x = x + self.ffn(f"blocks.{layer}.ffn", h)
-        logits = self.head(self._norm("final_norm", x))[:, 0]
+        tp = self._tp(cache_spec=self.cache_specs)
+        if self.cfg.is_encdec:
+            logits, cache = encdec.encdec_decode_step(self.view(), self.cfg, token, cache,
+                                                      pos_scalar, tp)
+        else:
+            logits, cache = transformer.lm_decode_step(self.view(), self.cfg, token, cache,
+                                                       pos_scalar, tp=tp)
         if self._head_sharded():
             logits = all_gather(logits, 1, self.r.model)
-        return logits, new_cache
+        return logits, cache

@@ -42,7 +42,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.smtree import resolve_device
-from repro_torch.data.pipeline import DataConfig, synth_batch
+from repro_torch.data.pipeline import DataConfig, model_batch
 from repro_torch.dist.checkpoint import CheckpointManager, latest_step, restore_checkpoint
 from repro_torch.dist.sharding import to_named
 from repro_torch.launch.mesh import host_mesh
@@ -122,9 +122,9 @@ def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.is_encdec or cfg.frontend == "vision_stub":
-        ap.error(f"{cfg.name} takes inputs beside the tokens; the trainer feeds "
-                 f"synth_batch's tokens and labels only, as the reference's does")
+    if cfg.frontend == "vision_stub" and args.seq_len <= cfg.n_image_tokens:
+        ap.error(f"--seq-len {args.seq_len} leaves no text after {cfg.name}'s "
+                 f"{cfg.n_image_tokens} image positions")
     dev = resolve_device(args.device)
     mesh = host_mesh(dev) if args.mesh == "host" else None
     if mesh is not None and dev.type == "cuda":
@@ -141,7 +141,7 @@ def main(argv=None):
         layout = reference_layout(params, cfg)
         save_tree = lambda: state_tree(params, opt, layout)
     else:
-        step_fn, shardings = make_train_step(cfg, mesh, synth_batch(dc, 0), settings)
+        step_fn, shardings = make_train_step(cfg, mesh, model_batch(cfg, dc, 0), settings)
         params, opt = init_sharded(cfg, mesh, 0, device=dev)
         layout = reference_layout(param_specs(cfg), cfg)
         save_tree = lambda: sharded_state_tree(params, opt, cfg, mesh, layout)
@@ -174,7 +174,7 @@ def main(argv=None):
             if mgr:
                 mgr.wait()
             raise SystemExit(f"[train] injected failure at step {step}")
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(dc, step).items()}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in model_batch(cfg, dc, step).items()}
         params, opt, metrics = step_fn(params, opt, batch)
         if lead and (step % args.log_every == 0 or step == args.steps - 1):
             loss = float(metrics["loss"])

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.tp import ONE
+
 
 def truncated_normal(shape, scale: float, dtype, *, generator: torch.Generator,
                      device=None) -> torch.Tensor:
@@ -32,7 +34,7 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """``y = x @ w (+ b)``; w: [d_in, d_out]."""
+    """``y = x @ w (+ b)`` (applied by ``dense``); w: [d_in, d_out]."""
 
     def __init__(self, w: torch.Tensor, b: torch.Tensor | None = None):
         super().__init__()
@@ -44,15 +46,18 @@ class Dense(nn.Module):
         return cls(truncated_normal((d_in, d_out), d_in ** -0.5, dtype,
                                     generator=generator, device=device))
 
-    def forward(self, x):
-        return dense(self.w, self.b, x)
-
 
 def dense(w, b, x):
     y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def dense_col(d, x, tp, sharded: bool):
+    """A column-parallel ``Dense`` (or a view of one) on x: this rank's
+    output columns, its replicated bias cut to them (``TP.cols``)."""
+    return dense(d.w, tp.cols(d.b, d.w.shape[-1], sharded), x)
 
 
 class Norm(nn.Module):
@@ -74,8 +79,14 @@ class Norm(nn.Module):
             if kind == "layernorm" else None
         return cls(kind, eps, ones, bias)
 
-    def forward(self, x):
-        return apply_norm(self.scale, self.bias, x, self.kind, self.eps)
+
+def norm(n, x, tp=None):
+    """The norm ``n`` (a ``Norm``, or dist/parallel.py's view of one) on x;
+    on a slice of the sequence (``tp.sp``) its weights pass through
+    copy-to."""
+    if tp is None:
+        return apply_norm(n.scale, n.bias, x, n.kind, n.eps)
+    return apply_norm(tp.rep(n.scale, False), tp.rep(n.bias, False), x, n.kind, n.eps)
 
 
 def apply_norm(scale, bias, x, kind: str, eps: float):
@@ -143,8 +154,20 @@ class MLP(nn.Module):
         wg = mk(d, f) if gated else None
         return cls(wi, mk(f, d), wg)
 
-    def forward(self, x):
-        return self.wo(mlp_hidden(x, self.wi, self.wg))
+
+def mlp_apply(p, x, tp=None):
+    """The MLP ``p`` (an ``MLP`` or a view of one) on x, its hidden dim
+    split over 'model' where the table splits it: ``wi``/``wg`` column-
+    parallel, ``wo`` row-parallel (one reduction, its bias added after
+    it, in the one-device ``h @ wo + b`` order)."""
+    tp = tp or ONE
+    sh = tp.sharded(p)
+    x = tp.enter(x, sh)
+    col = lambda d: (lambda h: dense_col(d, h, tp, sh))
+    a = mlp_hidden(x, col(p.wi), None if p.wg is None else col(p.wg))
+    y = tp.leave(dense(p.wo.w, None, a), sh)
+    b = tp.rep(p.wo.b, False)
+    return y if b is None else y + b.to(y.dtype)
 
 
 def mlp_hidden(x, wi, wg=None):

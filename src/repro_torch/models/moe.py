@@ -22,6 +22,8 @@ reference's own call recurses without end there).
 """
 from __future__ import annotations
 
+import types
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -29,7 +31,7 @@ from torch import nn
 
 from repro_torch.dist.collectives import (all_reduce_sum, all_to_all, copy_to, gather_stacked,
                                           reduce_from)
-from repro_torch.models.layers import MLP, _frozen, truncated_normal
+from repro_torch.models.layers import MLP, _frozen, mlp_apply, truncated_normal
 
 
 class MoE(nn.Module):
@@ -110,7 +112,7 @@ def _combine(out_e, gate_v, e_idx, c_idx, keep, k: int):
 
 
 def moe_apply(p: MoE, cfg, x: torch.Tensor, capacity: int | None = None, *,
-              model_group=None, data_group=None, _routing: list | None = None):
+              model_group=None, data_group=None, tp=None, _routing: list | None = None):
     """x: [b, s, D] -> (y, aux) with aux = dict(lb_loss, z_loss, drop_frac).
 
     ``capacity`` overrides the per-expert buffer size (decode passes the
@@ -120,7 +122,8 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, capacity: int | None = None, *,
     evenly over the group, rank order; the dispatch is the whole batch's
     (the capacity from its token count, each slot counted after the lower
     ranks' tokens, as the reference's GSPMD program places them) and the
-    aux values are its global means.  ``_routing`` (private) gets one dict
+    aux values are its global means.  ``tp`` (dist/tp.py): the mesh context
+    of the shared experts' MLP.  ``_routing`` (private) gets one dict
     per call: the choices ``gate_i`` [T, k], whether each was kept,
     ``keep`` [T, k], and the three aux values, so a caller can compare two
     runs' routing."""
@@ -148,7 +151,7 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, capacity: int | None = None, *,
     out_e = _experts(p, buf, model_group)                           # [E, C, D]
     y = _combine(out_e, gate_v, e_idx, c_idx, keep, k).reshape(b, s, D)
     if p.shared is not None:
-        y = y + p.shared(x)
+        y = y + mlp_apply(p.shared, x, tp)
 
     if data_group is None:
         ce = flat.sum(1).float() / max(T * k, 1)
@@ -187,7 +190,7 @@ def ep_applies(cfg, global_batch: int, group) -> bool:
 
 
 def moe_apply_ep(p, cfg, x: torch.Tensor, capacity: int | None = None, *, group=None,
-                 model_group=None):
+                 model_group=None, tp=None):
     """Expert parallelism over the data group ``group`` (the reference's
     shard_map body, ``repro/models/moe.py:moe_apply_ep``).  ``x`` [b/G, s,
     D] is this rank's tokens; ``p``'s ``wi``/``wg`` [E/G, D, F] and ``wo``
@@ -211,7 +214,7 @@ def moe_apply_ep(p, cfg, x: torch.Tensor, capacity: int | None = None, *, group=
     b, s, D = x.shape
     G = 1 if group is None else dist.get_world_size(group)
     if not ep_applies(cfg, b * G, group):
-        return moe_apply(p, cfg, x, capacity, model_group=model_group)
+        return moe_apply(p, cfg, x, capacity, model_group=model_group, tp=tp)
     E, k = cfg.padded_experts, cfg.experts_per_token
     T = b * G * s
     C = capacity or max(1, int(T * k / cfg.n_experts * cfg.capacity_factor))
@@ -237,5 +240,29 @@ def moe_apply_ep(p, cfg, x: torch.Tensor, capacity: int | None = None, *, group=
                        1.0 - keep.float().mean()])
     aux = all_reduce_sum(aux, group) / torch.full((), float(G), device=aux.device)
     if p.shared is not None:
-        y = y + p.shared(x)
+        y = y + mlp_apply(p.shared, x, tp)
     return y, dict(zip(("lb_loss", "z_loss", "drop_frac"), aux.unbind()))
+
+
+def moe_block(p, cfg, h: torch.Tensor, capacity: int | None = None, tp=None,
+              _routing: list | None = None):
+    """A block's MoE FFN.  On one device ``moe_apply``.  On a mesh (``tp``,
+    dist/tp.py; h whole over 'model'): expert-parallel over 'data'
+    (``moe_apply_ep``, each rank's own experts, not gathered) where the
+    config and the batch allow it, else the whole batch's dense dispatch
+    (``moe_apply(data_group=)``) with every expert gathered; the experts'
+    hidden dim over 'model' either way.  Decode's dropless capacity is
+    local; training's is the batch's."""
+    if tp is None or tp.r is None:
+        return moe_apply(p, cfg, h, capacity, _routing=_routing)
+    r = tp.r
+    model_group = r.model if tp.split(p, "wi") else None
+    ep = (cfg.moe_ep and capacity is None and tp.rows_split
+          and ep_applies(cfg, h.shape[0] * r.dp, r.data))
+    if ep:
+        q = types.SimpleNamespace(router=p.router, wi=p._raw("wi"), wg=p._raw("wg"),
+                                  wo=p._raw("wo"), shared=p.shared)
+        return moe_apply_ep(q, cfg, h, capacity, group=r.data, model_group=model_group, tp=tp)
+    data_group = r.data if capacity is None and tp.rows_split and r.dp > 1 else None
+    return moe_apply(p, cfg, h, capacity, model_group=model_group, data_group=data_group,
+                     tp=tp, _routing=_routing)

@@ -12,6 +12,20 @@ dozen launches instead of ``L`` sequential steps.  Decode: the one-step
 recurrence with a ``[b, kc - 1, di]`` convolution window in the compute
 dtype and the state ``h`` [b, di, n] in float32, as the reference caches
 them.  The reference has no Pallas kernel here.
+
+On a {data, model} mesh (``tp``, dist/tp.py) each rank runs the
+convolution, the scan, ``dt_proj``, ``A_log`` and ``D`` on its contiguous
+slice of d_inner, as the rule table splits them; ``x_proj`` is row-
+parallel (its [b, s, r + 2n] product summed over 'model' before the
+split) and so is ``out_proj`` (one reduction).  ``in_proj`` [D, 2 di] is
+column-parallel over the *fused* x | z, so at two ranks rank 0 holds all
+of x and rank 1 all of z, while each needs both at its own channels.  The
+port regroups the local product [b, s, 2 di / tp] with one all-to-all
+(``collectives.regroup_halves``), not the weight: a rank then moves
+b * s * 2 di / tp activations (16 MB a layer at b=2 x 2048 on the 16-way
+model axis of jamba's production mesh) where gathering the weight shard
+would move D * 2 di, 268 MB a layer, whatever the batch; and the
+product stays 1/tp of the work.
 """
 from __future__ import annotations
 
@@ -21,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Dense, _frozen, truncated_normal
+from repro_torch.dist.tp import ONE
+from repro_torch.models.layers import Dense, _frozen, dense, dense_col, truncated_normal
 
 
 def _dt_rank(cfg) -> int:
@@ -61,11 +76,19 @@ class Mamba(nn.Module):
                    Dense.init(di, D_, dtype, **kw))
 
 
-def _ssm_params(p: Mamba, cfg, xc):
-    """xc: [..., di] post-conv activations -> (dt, B, C) in float32."""
+def _ssm_params(p: Mamba, cfg, xc, tp=None, sharded: bool = False):
+    """xc: [..., di] post-conv activations (this rank's channels on a
+    mesh) -> (dt, B, C) in float32, dt on the same channels.  ``x_proj``
+    is row-parallel there: its product is summed over 'model' before the
+    split, and ``dt_proj`` column-parallel."""
+    tp = tp or ONE
     n, r = cfg.ssm_state, _dt_rank(cfg)
-    dt, Bm, Cm = p.x_proj(xc).split([r, n, n], dim=-1)
-    return _softplus(p.dt_proj(dt).float()), Bm.float(), Cm.float()
+    y = tp.psum(dense(p.x_proj.w, None, xc), sharded)
+    if p.x_proj.b is not None:
+        y = y + tp.rep(p.x_proj.b, sharded).to(y.dtype)
+    dt, Bm, Cm = y.split([r, n, n], dim=-1)
+    dt = dense_col(p.dt_proj, dt, tp, sharded)
+    return _softplus(dt.float()), Bm.float(), Cm.float()
 
 
 def _scan_chunk(a, u):
@@ -88,18 +111,22 @@ def _scan_chunk(a, u):
     return a, u
 
 
-def mamba_apply(p: Mamba, cfg, x: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
-    """x: [b, s, D] -> [b, s, D] (causal)."""
+def mamba_apply(p: Mamba, cfg, x: torch.Tensor, *, chunk: int = 256, tp=None) -> torch.Tensor:
+    """x: [b, s, D] -> [b, s, D] (causal).  On a mesh (``tp``) the
+    convolution, the scan and ``D`` run on this rank's channels of d_inner
+    (``p``'s weights as the table splits them)."""
+    tp = tp or ONE
+    sh = tp.sharded(p)
     b, s, _ = x.shape
-    di, n, kc = cfg.ssm_expand * cfg.d_model, cfg.ssm_state, cfg.ssm_conv
-    xi, z = p.in_proj(x).chunk(2, dim=-1)                          # [b, s, di]
+    di, n, kc = p.conv_w.shape[-1], cfg.ssm_state, cfg.ssm_conv
+    xi, z = _in_proj(p, tp.enter(x, sh), tp, sh)                   # [b, s, di]
 
     # causal depthwise conv along s: the reference's sum of shifted slices
     pad = F.pad(xi, (0, 0, kc - 1, 0))
     xc = sum(pad[:, i:i + s] * p.conv_w[i].to(x.dtype) for i in range(kc))
     xc = F.silu(xc + p.conv_b.to(x.dtype))
 
-    dt, Bm, Cm = _ssm_params(p, cfg, xc)                # [b,s,di], [b,s,n] x2
+    dt, Bm, Cm = _ssm_params(p, cfg, xc, tp, sh)        # [b,s,di], [b,s,n] x2
     A = -torch.exp(p.A_log)                                         # [di, n]
     xcf = xc.float()
 
@@ -119,7 +146,21 @@ def mamba_apply(p: Mamba, cfg, x: torch.Tensor, *, chunk: int = 256) -> torch.Te
         del dA, dBx, aa, hs
     y = torch.cat(ys, dim=1) + xcf * p.D
     y = y.to(x.dtype) * F.silu(z)
-    return p.out_proj(y)
+    return _out_proj(p, y, tp, sh)
+
+
+def _in_proj(p: Mamba, x, tp, sharded: bool):
+    """``in_proj`` (column-parallel over the fused x | z) -> this rank's
+    channels of x and of z (``TP.halves``: the local product regrouped by
+    one all-to-all)."""
+    return tp.halves(dense_col(p.in_proj, x, tp, sharded), sharded)
+
+
+def _out_proj(p: Mamba, y, tp, sharded: bool):
+    """``out_proj``, row-parallel: one reduction, then its bias."""
+    out = tp.leave(dense(p.out_proj.w, None, y), sharded)
+    b = tp.rep(p.out_proj.b, False)
+    return out if b is None else out + b.to(out.dtype)
 
 
 def mamba_init_cache(cfg, batch: int, dtype, device) -> dict:
@@ -129,19 +170,26 @@ def mamba_init_cache(cfg, batch: int, dtype, device) -> dict:
                              device=device)}
 
 
-def mamba_decode(p: Mamba, cfg, x1: torch.Tensor, cache: dict):
-    """x1: [b, 1, D] -> (y1, new cache); O(1) per token."""
-    xi, z = p.in_proj(x1).chunk(2, dim=-1)                         # [b, 1, di]
+def mamba_decode(p: Mamba, cfg, x1: torch.Tensor, cache: dict, tp=None):
+    """x1: [b, 1, D] -> (y1, new cache); O(1) per token.  On a mesh the
+    cache holds this rank's channels of d_inner (``cache_pspecs`` splits
+    the window and the state along d_inner, as the weights)."""
+    tp = tp or ONE
+    sh = tp.sharded(p)
+    if cache["h"].shape[1] != p.conv_w.shape[-1]:
+        raise ValueError(f"the Mamba cache holds {cache['h'].shape[1]} channels of d_inner, "
+                         f"the weights {p.conv_w.shape[-1]}")
+    xi, z = _in_proj(p, tp.enter(x1, sh), tp, sh)                  # [b, 1, di]
     window = torch.cat([cache["conv"], xi], dim=1)                  # [b, kc, di]
     xc = (window * p.conv_w.to(x1.dtype)[None]).sum(1, keepdim=True) \
         + p.conv_b.to(x1.dtype)
     xc = F.silu(xc)
 
-    dt, Bm, Cm = _ssm_params(p, cfg, xc)                            # [b, 1, ...]
+    dt, Bm, Cm = _ssm_params(p, cfg, xc, tp, sh)                    # [b, 1, ...]
     A = -torch.exp(p.A_log)
     dA = torch.exp(dt[..., None] * A)[:, 0]                         # [b, di, n]
     dBx = ((dt * xc.float())[..., None] * Bm[:, :, None, :])[:, 0]
     h = dA * cache["h"] + dBx
     y = torch.einsum("bin,bn->bi", h, Cm[:, 0])[:, None, :]
     y = (y + xc.float() * p.D).to(x1.dtype) * F.silu(z)
-    return p.out_proj(y), {"conv": window[:, 1:], "h": h}
+    return _out_proj(p, y, tp, sh), {"conv": window[:, 1:], "h": h}

@@ -4,7 +4,9 @@ The reference scans ``n_periods`` stacked copies of the config's
 ``block_pattern``; eager PyTorch has no use for the scan, so the layers are
 a ``ModuleList`` of ``n_layers`` blocks, layer ``p * len(pattern) + j``
 being period ``p`` of the reference's ``blocks[j]`` leaves
-(models/convert.py unstacks them).  The block kinds are ``attn`` (GQA
+(models/convert.py unstacks them).  Every function here takes the mesh
+context ``tp`` (dist/tp.py; None on one device), so the sharded runtime
+(dist/parallel.py) runs this code on its view of a rank's shards.  The block kinds are ``attn`` (GQA
 attention + dense FFN), ``attn_moe`` (+ the MoE FFN), ``mamba``,
 ``mamba_moe`` and the xLSTM kinds ``mlstm`` and ``slstm``, which carry no
 FFN (the reference returns after their mixer).
@@ -19,11 +21,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.tp import ONE
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (MLP, Dense, Norm, _frozen,
+from repro_torch.models.layers import (MLP, Dense, Norm, _frozen, mlp_apply, norm,
                                        truncated_normal)
 
 class _Recurrent(NamedTuple):
@@ -86,47 +89,54 @@ class Block(nn.Module):
                    if cfg.d_ff else None)
         return cls(kind, norm(), mixer, norm(), ffn)
 
-    def forward(self, cfg, x, pos, attention=None, routing=None):
-        """-> (x, aux dict or None)."""
-        h = self.norm1(x)
-        if self.kind in _XLSTM:
-            with _span(self.kind):
-                return x + _XLSTM[self.kind].apply(self.mixer, cfg, h), None
-        if self.kind.startswith("attn"):
-            with _span("attn"):
-                x = x + attn_mod.attn_apply(self.mixer, cfg, h, pos=pos, attention=attention)
-        else:
-            with _span("mamba"):
-                x = x + ssm_mod.mamba_apply(self.mixer, cfg, h)
-        return self._ffn(cfg, x, None, routing)
 
-    def decode(self, cfg, x1, cslice, pos_scalar, routing=None):
-        h = self.norm1(x1)
-        if self.kind in _XLSTM:
-            with _span(self.kind):
-                y, new_c = _XLSTM[self.kind].decode(self.mixer, cfg, h, cslice)
-            return x1 + y, new_c
-        if self.kind.startswith("attn"):
-            with _span("attn"):
-                y, kv = attn_mod.attn_decode(self.mixer, cfg, h, cslice["kv"], pos_scalar)
-            new_c = {"kv": kv}
-        else:
-            with _span("mamba"):
-                y, new_c = ssm_mod.mamba_decode(self.mixer, cfg, h, cslice)
-        # dropless at decode: at worst every token routes to one expert
-        x1, _ = self._ffn(cfg, x1 + y, x1.shape[0], routing)
-        return x1, new_c
+def block_apply(blk, cfg, x, pos, attention=None, routing=None, tp=None):
+    """One block (a ``Block``, or dist/parallel.py's view of one with its
+    mesh context ``tp``) on x in the residual stream's layout -> (x, aux
+    dict or None)."""
+    h = norm(blk.norm1, x, tp)
+    if blk.kind in _XLSTM:
+        with _span(blk.kind):
+            return x + _XLSTM[blk.kind].apply(blk.mixer, cfg, h, tp=tp), None
+    if blk.kind.startswith("attn"):
+        with _span("attn"):
+            x = x + attn_mod.attn_apply(blk.mixer, cfg, h, pos=pos, attention=attention, tp=tp)
+    else:
+        with _span("mamba"):
+            x = x + ssm_mod.mamba_apply(blk.mixer, cfg, h, tp=tp)
+    return _ffn(blk, cfg, x, None, routing, tp)
 
-    def _ffn(self, cfg, x, capacity, routing):
-        if self.ffn is None:
-            return x, None
-        h = self.norm2(x)
-        if self.kind.endswith("_moe"):
-            with _span("moe"):
-                y, aux = moe_mod.moe_apply(self.ffn, cfg, h, capacity, _routing=routing)
-            return x + y, aux
-        with _span("mlp"):
-            return x + self.ffn(h), None
+
+def block_decode(blk, cfg, x1, cslice, pos_scalar, routing=None, tp=None):
+    """One block's cached decode of one position -> (x1, its new cache);
+    on a mesh ``tp`` carries the layer's cache specs (``TP.at``)."""
+    h = norm(blk.norm1, x1, tp)
+    if blk.kind in _XLSTM:
+        with _span(blk.kind):
+            y, new_c = _XLSTM[blk.kind].decode(blk.mixer, cfg, h, cslice, tp=tp)
+        return x1 + y, new_c
+    if blk.kind.startswith("attn"):
+        with _span("attn"):
+            y, kv = attn_mod.attn_decode(blk.mixer, cfg, h, cslice["kv"], pos_scalar, tp)
+        new_c = {"kv": kv}
+    else:
+        with _span("mamba"):
+            y, new_c = ssm_mod.mamba_decode(blk.mixer, cfg, h, cslice, tp=tp)
+    # dropless at decode: at worst every token routes to one expert
+    x1, _ = _ffn(blk, cfg, x1 + y, x1.shape[0], routing, tp)
+    return x1, new_c
+
+
+def _ffn(blk, cfg, x, capacity, routing, tp):
+    if blk.ffn is None:
+        return x, None
+    h = norm(blk.norm2, x, tp)
+    if blk.kind.endswith("_moe"):
+        with _span("moe"):
+            y, aux = moe_mod.moe_block(blk.ffn, cfg, h, capacity, tp, _routing=routing)
+        return x + y, aux
+    with _span("mlp"):
+        return x + mlp_apply(blk.ffn, h, tp), None
 
 
 class LM(nn.Module):
@@ -144,11 +154,6 @@ class LM(nn.Module):
         self.lm_head = lm_head
         self.pos_embed = None if pos_embed is None else _frozen(pos_embed)
 
-    def head(self, x):
-        if self.lm_head is None:
-            return x @ self.embed.T.to(x.dtype)
-        return self.lm_head(x)
-
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator, device) -> LM:
     dtype = _dtype(cfg)
@@ -165,19 +170,23 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator, device) -> LM:
     return LM(embed, final_norm, blocks, lm_head, pos_embed)
 
 
-def embed_inputs(params: LM, cfg: ArchConfig, batch: dict):
+def embed_inputs(params: LM, cfg: ArchConfig, batch: dict, tp=None):
     """Token (+ vision-stub) embedding, + learned positions where the
-    config has them.  Returns (x [b, s, D], pos [b, s])."""
+    config has them.  Returns (x [b, s, D], pos [b, s]); on a mesh x is in
+    the residual stream's layout (this rank's slice of the sequence under
+    sequence parallelism, the image positions included) and pos covers
+    the whole sequence."""
+    tp = tp or ONE
     dt = getattr(torch, cfg.compute_dtype)
     tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
-    x = params.embed[tokens].to(dt)
+    img = None
     if cfg.frontend == "vision_stub":
-        img = torch.as_tensor(batch["image_embeds"], device=x.device).to(dt)
-        x = torch.cat([img, x], dim=1)
-    b, s, _ = x.shape
+        img = torch.as_tensor(batch["image_embeds"], device=params.embed.device)
+    x = tp.embed(params, tokens, dt, img)
+    b, s = tokens.shape[0], tokens.shape[1] + (0 if img is None else img.shape[1])
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     if cfg.pos_embedding == "learned":
-        x = x + params.pos_embed[:s].to(dt)
+        x = x + tp.seq_slice(tp.rep(params.pos_embed, False)[:s], 0).to(dt)
     return x, pos
 
 
@@ -218,13 +227,13 @@ def aux_means(cfg: ArchConfig, sums) -> dict:
 
 
 def _trunk(params: LM, cfg: ArchConfig, batch: dict, attention, routing,
-           remat: bool = False):
+           remat: bool = False, tp=None):
     """-> (final-normed hidden states [b, s, D], aux sums [3] over the MoE
     layers, in ``AUX_KEYS`` order), the layers run by ``run_periods``."""
-    x, pos = embed_inputs(params, cfg, batch)
-    x, sums = run_periods(
-        cfg, x, lambda layer, x: params.blocks[layer](cfg, x, pos, attention, routing), remat)
-    return params.final_norm(x), sums
+    x, pos = embed_inputs(params, cfg, batch, tp)
+    x, sums = run_periods(cfg, x, lambda layer, x: block_apply(
+        params.blocks[layer], cfg, x, pos, attention, routing, tp), remat)
+    return norm(params.final_norm, x, tp), sums
 
 
 def hidden_states(params: LM, cfg: ArchConfig, batch: dict, *, _attention=None):
@@ -233,16 +242,19 @@ def hidden_states(params: LM, cfg: ArchConfig, batch: dict, *, _attention=None):
 
 
 def lm_forward(params: LM, cfg: ArchConfig, batch: dict, *, remat: bool = False,
-               _attention=None, _routing=None):
+               _attention=None, _routing=None, tp=None):
     """Full-sequence forward.  Returns (logits [b, s, V], aux dict): the
     MoE layers' aux summed and divided by ``max(1, n_moe * n_periods)``
     (zeros without MoE layers).  ``remat`` checkpoints each period
     (``_trunk``).  ``_attention`` (private) replaces the attention entry
     point, so a caller can run the plain version on the card and compare;
     ``_routing`` (private) collects each MoE layer's routing
-    (models/moe.py), once more for each period that remat recomputes."""
-    x, sums = _trunk(params, cfg, batch, _attention, _routing, remat)
-    return params.head(x), aux_means(cfg, sums)
+    (models/moe.py), once more for each period that remat recomputes.  On
+    a mesh (``tp``; dist/parallel.py's view of this rank's shards as
+    ``params``) the logits are this rank's vocab slice."""
+    tp = tp or ONE
+    x, sums = _trunk(params, cfg, batch, _attention, _routing, remat, tp)
+    return tp.head(params, x), aux_means(cfg, sums)
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, dtype=None,
@@ -265,16 +277,21 @@ def init_cache(cfg: ArchConfig, batch: int, length: int, dtype=None,
 
 
 def lm_decode_step(params: LM, cfg: ArchConfig, token, cache, pos_scalar: int, *,
-                   _routing=None):
-    """token: [b] int; pos_scalar: int.  Returns (logits [b, V], new cache)."""
+                   _routing=None, tp=None):
+    """token: [b] int; pos_scalar: int.  Returns (logits [b, V], new
+    cache); on a mesh (``tp``, whose ``cache_spec`` is the cache's specs
+    by layer) the logits are this rank's vocab slice."""
+    tp = tp or ONE
     dt = getattr(torch, cfg.compute_dtype)
     token = torch.as_tensor(token, device=params.embed.device).long()
-    x = params.embed[token][:, None, :].to(dt)
+    x = tp.embed(params, token[:, None], dt)
     if cfg.pos_embedding == "learned":
         x = x + params.pos_embed[pos_scalar][None, None].to(dt)
+    specs = tp.cache_spec
     new_cache = []
-    for blk, cslice in zip(params.blocks, cache):
-        x, nc = blk.decode(cfg, x, cslice, pos_scalar, _routing)
+    for layer, cslice in enumerate(cache):
+        x, nc = block_decode(params.blocks[layer], cfg, x, cslice, pos_scalar, _routing,
+                             tp.at(specs[layer]) if specs is not None else tp)
         new_cache.append(nc)
-    logits = params.head(params.final_norm(x))
+    logits = tp.head(params, norm(params.final_norm, x, tp))
     return logits[:, 0], new_cache

@@ -13,6 +13,26 @@ reference rounds them, and accumulate in float32 (the reference's
 loop over time of elementwise ops and one per-head product, with no host
 synchronisation inside.  ``w_if``, ``b_if``, ``outnorm`` (mLSTM) and ``b``,
 ``r``, ``gnorm`` (sLSTM) are float32 whatever the parameter dtype.
+
+On a {data, model} mesh (``tp``, dist/tp.py) the rule table splits d_x
+(mLSTM) and the gates and the FFN's hidden dim (sLSTM) over 'model'.  The
+fused up-projections (mLSTM's ``up`` [D, 2 dx], sLSTM's ``up`` [D, 2
+f_up]) are column-parallel over the concatenation, so their local products
+are regrouped into this rank's slices of both halves by one all-to-all,
+as Mamba's ``in_proj`` is (models/ssm.py says why not the weight).
+mLSTM: ``wq``/``wk`` read the whole post-conv activation (all-gathered)
+and, with ``wv`` and ``w_o``, give this rank's columns; ``w_if`` is row-
+parallel, its gate pre-activations summed over 'model' before the
+stabiliser; ``outnorm`` takes its mean square over the ranks.  Where the
+model axis divides the heads a rank's columns are whole heads; where a
+head spans ranks (more ranks than heads) the head's q/k/v columns are
+gathered and its ranks each run the head's cell whole, keeping their own
+columns of h.  The decode cache's state C [b, H, dh, dh] is split by the
+table along its first dh (its largest dim), not by head: ``mlstm_decode``
+regroups there.  sLSTM: ``w`` is column-parallel and the recurrence ``r``
+replicated, so the gate pre-activations are gathered once, before the
+loop, which every rank then runs whole with no collective inside it;
+its state cache (split along D) is gathered for the step and cut back.
 """
 from __future__ import annotations
 
@@ -20,7 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Dense, Norm, _frozen, truncated_normal
+from repro_torch.dist.tp import ONE
+from repro_torch.models.layers import Dense, Norm, _frozen, dense, dense_col, norm, truncated_normal
 
 NEG = -1e30
 
@@ -67,9 +88,11 @@ class MLSTM(nn.Module):
                    Dense.init(dx, D, dtype, **kw))
 
 
-def _mlstm_gates(p: MLSTM, xc, H: int):
-    """xc: [b, s, dx] -> (log_f, log_i) each [b, s, H] float32."""
-    g = xc.float() @ p.w_if + p.b_if
+def _mlstm_gates(p: MLSTM, xc, H: int, tp=ONE, sharded: bool = False):
+    """xc: [b, s, dx] (this rank's columns on a mesh: ``w_if`` is row-
+    parallel, its product summed over 'model' before the bias) -> (log_f,
+    log_i) each [b, s, H] float32, every head."""
+    g = tp.psum(xc.float() @ p.w_if, sharded) + tp.rep(p.b_if, sharded)
     log_i, f_pre = g.split(H, dim=-1)
     return F.logsigmoid(f_pre), log_i
 
@@ -155,27 +178,66 @@ def _conv_silu(p: MLSTM, xm, s: int, dtype):
     return F.silu(xc)
 
 
-def _mlstm_out(p: MLSTM, h, x, z):
+def _split_norm(n: Norm, x, tp, sharded: bool):
+    """The RMSNorm ``n`` over a last dim that may be split over 'model'
+    (``outnorm`` over d_x): the mean square from the sum over the ranks."""
+    if not sharded:
+        return norm(n, x, tp)
+    xf = x.float()
+    ms = tp.psum((xf * xf).sum(-1, keepdim=True), sharded) / (x.shape[-1] * tp.r.tp)
+    y = xf * torch.rsqrt(ms + n.eps) * tp.cols(n.scale, x.shape[-1], sharded).float()
+    return y.to(x.dtype)
+
+
+def _mlstm_out(p: MLSTM, h, x, z, tp=ONE, sharded: bool = False):
     """Output gate, outnorm, the z gate and the down projection.  h: [b, s,
-    dx] float32."""
-    o = torch.sigmoid(p.w_o(x).float())
-    h = p.outnorm(h.float())
-    return p.down((h * o).to(x.dtype) * F.silu(z))
+    dx] float32 (this rank's columns on a mesh; ``down`` row-parallel)."""
+    o = torch.sigmoid(dense_col(p.w_o, x, tp, sharded).float())
+    h = _split_norm(p.outnorm, h.float(), tp, sharded)
+    y = tp.leave(dense(p.down.w, None, (h * o).to(x.dtype) * F.silu(z)), sharded)
+    b = tp.rep(p.down.b, False)
+    return y if b is None else y + b.to(y.dtype)
 
 
-def mlstm_apply(p: MLSTM, cfg, x, *, chunk: int = 256):
-    """Full mLSTM block.  x: [b, s, D] -> [b, s, D]."""
+def _head_cover(c0: int, width: int, dh: int) -> tuple[int, int]:
+    """The heads [h0, h1) that columns [c0, c0 + width) of d_x touch."""
+    return c0 // dh, -(-(c0 + width) // dh)
+
+
+def mlstm_apply(p: MLSTM, cfg, x, *, chunk: int = 256, tp=None):
+    """Full mLSTM block.  x: [b, s, D] -> [b, s, D].  On a mesh (``tp``)
+    each rank holds a contiguous slice of d_x: ``up`` regrouped into its
+    slices of x_m and z (``TP.halves``), the convolution on its channels,
+    ``wq``/``wk`` on the whole post-conv activation (all-gathered) and
+    ``wv``/``w_o`` column-parallel, the gates all-reduced (``w_if`` row-
+    parallel); the cell runs on the heads of its columns.  Where a head
+    spans ranks (more ranks than heads), its q/k/v columns are all-gathered
+    and every rank of the head runs the head's cell whole, keeping its own
+    columns of h."""
+    tp = tp or ONE
+    sh = tp.sharded(p)
     b, s, _ = x.shape
     H, dx, dh = _dims(cfg)
-    xm, z = p.up(x).chunk(2, dim=-1)                               # [b, s, dx]
+    x = tp.enter(x, sh)
+    xm, z = tp.halves(dense_col(p.up, x, tp, sh), sh)              # [b, s, dx]
     xc = _conv_silu(p, xm, s, x.dtype)
-    heads = lambda a: a.reshape(b, s, H, dh).transpose(1, 2)
-    q, k, v = heads(p.wq(xc)), heads(p.wk(xc)), heads(p.wv(x))
-    log_f, log_i = _mlstm_gates(p, xc, H)
-    state = mlstm_init_cache(cfg, b, x.dtype, x.device)
-    h, _ = mlstm_cell(q, k, v, log_f, log_i, (state["C"], state["n"], state["m"]),
-                      chunk=chunk)
-    return _mlstm_out(p, h.transpose(1, 2).reshape(b, s, dx), x, z)
+    xcw = tp.gather(xc, -1, sh)
+    q, k, v = (dense_col(p.wq, xcw, tp, sh), dense_col(p.wk, xcw, tp, sh),
+               dense_col(p.wv, x, tp, sh))
+    log_f, log_i = _mlstm_gates(p, xc, H, tp, sh)
+    dxl = q.shape[-1]
+    c0 = tp.lo(dxl, sh)
+    h0, h1 = _head_cover(c0, dxl, dh)
+    if c0 % dh or dxl % dh:
+        q, k, v = (tp.gather(a, -1, sh)[..., h0 * dh:h1 * dh] for a in (q, k, v))
+    nh = h1 - h0
+    heads = lambda a: a.reshape(b, s, nh, dh).transpose(1, 2)
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=x.device)
+    state = (zeros(b, nh, dh, dh), zeros(b, nh, dh), zeros(b, nh))
+    h, _ = mlstm_cell(heads(q), heads(k), heads(v), log_f[..., h0:h1], log_i[..., h0:h1],
+                      state, chunk=chunk)
+    h = h.transpose(1, 2).reshape(b, s, nh * dh)[..., c0 - h0 * dh:c0 - h0 * dh + dxl]
+    return _mlstm_out(p, h, x, z, tp, sh)
 
 
 def mlstm_init_cache(cfg, batch: int, dtype, device) -> dict:
@@ -185,28 +247,45 @@ def mlstm_init_cache(cfg, batch: int, dtype, device) -> dict:
             "C": zeros(batch, H, dh, dh), "n": zeros(batch, H, dh), "m": zeros(batch, H)}
 
 
-def mlstm_decode(p: MLSTM, cfg, x1, cache: dict):
-    """x1: [b, 1, D] -> (y1, new cache); the one-step recurrence."""
+def mlstm_decode(p: MLSTM, cfg, x1, cache: dict, tp=None):
+    """x1: [b, 1, D] -> (y1, new cache); the one-step recurrence.  On a
+    mesh the convolution window holds this rank's channels of d_x, as the
+    weights do, but the table splits the state C [b, H, dh, dh] along its
+    first dh (its largest dim), n along dh and m along H where 'model'
+    divides them, which is not the split of the heads that the weights
+    imply: the step regroups here, gathering q, k, v and the state whole
+    over 'model' (``TP.state_whole``), running every head, and keeping
+    this rank's columns of h and its slices of the new state
+    (``TP.state_part``)."""
+    tp = tp or ONE
+    sh = tp.sharded(p)
     b = x1.shape[0]
     H, dx, dh = _dims(cfg)
-    xm, z = p.up(x1).chunk(2, dim=-1)                              # [b, 1, dx]
+    x1 = tp.enter(x1, sh)
+    xm, z = tp.halves(dense_col(p.up, x1, tp, sh), sh)             # [b, 1, dx]
     window = torch.cat([cache["conv"], xm], dim=1)                 # [b, 4, dx]
     xc = F.silu((window * p.conv_w.to(x1.dtype)[None]).sum(1, keepdim=True)
                 + p.conv_b.to(x1.dtype))
-    q = p.wq(xc).reshape(b, H, dh) * dh ** -0.5
-    k = p.wk(xc).reshape(b, H, dh)
-    v = p.wv(x1[:, 0]).reshape(b, H, dh)
-    log_f, log_i = (a[:, 0] for a in _mlstm_gates(p, xc, H))       # [b, H]
-    m_new = torch.maximum(cache["m"] + log_f, log_i)
-    fp = (log_f + cache["m"] - m_new).exp()[..., None]
+    xcw = tp.gather(xc, -1, sh)
+    whole = lambda a: tp.gather(a, -1, sh).reshape(b, H, dh)
+    q = whole(dense_col(p.wq, xcw, tp, sh)) * dh ** -0.5
+    k = whole(dense_col(p.wk, xcw, tp, sh))
+    v = whole(dense_col(p.wv, x1[:, 0], tp, sh))
+    log_f, log_i = (a[:, 0] for a in _mlstm_gates(p, xc, H, tp, sh))       # [b, H]
+    st = tp.state_whole({"C": cache["C"], "n": cache["n"], "m": cache["m"]})
+    m_new = torch.maximum(st["m"] + log_f, log_i)
+    fp = (log_f + st["m"] - m_new).exp()[..., None]
     ip = (log_i - m_new).exp()[..., None]
     kf, vf, qf = k.float(), v.float(), q.float()
-    C = cache["C"] * fp[..., None] + ip[..., None] * kf[..., :, None] * vf[..., None, :]
-    n = cache["n"] * fp + ip * kf
+    C = st["C"] * fp[..., None] + ip[..., None] * kf[..., :, None] * vf[..., None, :]
+    n = st["n"] * fp + ip * kf
     num = (qf[..., None, :] @ C)[..., 0, :]                        # [b, H, dh]
     den = torch.maximum((qf * n).sum(-1).abs(), (-m_new).exp())[..., None]
-    y = _mlstm_out(p, (num / den).reshape(b, 1, dx), x1, z)
-    return y, {"conv": window[:, 1:], "C": C, "n": n, "m": m_new}
+    dxl = xm.shape[-1]
+    c0 = tp.lo(dxl, sh)
+    h = (num / den).reshape(b, 1, dx)[..., c0:c0 + dxl]
+    y = _mlstm_out(p, h, x1, z, tp, sh)
+    return y, {"conv": window[:, 1:], **tp.state_part({"C": C, "n": n, "m": m_new})}
 
 
 # ===========================================================================
@@ -250,13 +329,14 @@ def _slstm_scan(p: SLSTM, cfg, wx, state):
     D, H = cfg.d_model, cfg.n_heads
     dh = D // H
     c, n, h, m = state
+    r, bias = p.r, p.b
     wx = wx.float()
     hs = []
     for t in range(s):
         # one [b, dh] x [dh, 4 dh] product per head (a broadcast matmul
         # would copy r b times a step)
-        rh = torch.bmm(h.view(b, H, dh).transpose(0, 1), p.r).transpose(0, 1)
-        z_pre, i_pre, f_pre, o_pre = (wx[:, t] + rh.reshape(b, 4 * D) + p.b).split(D, dim=-1)
+        rh = torch.bmm(h.view(b, H, dh).transpose(0, 1), r).transpose(0, 1)
+        z_pre, i_pre, f_pre, o_pre = (wx[:, t] + rh.reshape(b, 4 * D) + bias).split(D, dim=-1)
         lfm = F.logsigmoid(f_pre) + m
         m_new = torch.maximum(lfm, i_pre)
         ip = (i_pre - m_new).exp()
@@ -269,19 +349,33 @@ def _slstm_scan(p: SLSTM, cfg, wx, state):
     return torch.stack(hs, dim=1), (c, n, h, m)
 
 
-def _slstm_out(p: SLSTM, h, dtype):
-    h = p.gnorm(h).to(dtype)
-    a, g = p.up(h).chunk(2, dim=-1)
-    return p.down(F.gelu(a, approximate="tanh") * g)
+def _slstm_out(p: SLSTM, h, dtype, tp=ONE, sharded: bool = False):
+    """gnorm, then the gated GELU FFN: ``up`` column-parallel (regrouped
+    into this rank's slices of a and g), ``down`` row-parallel."""
+    h = norm(p.gnorm, h).to(dtype)
+    a, g = tp.halves(dense_col(p.up, tp.enter(h, sharded), tp, sharded), sharded)
+    y = tp.leave(dense(p.down.w, None, F.gelu(a, approximate="tanh") * g), sharded)
+    b = tp.rep(p.down.b, False)
+    return y if b is None else y + b.to(y.dtype)
 
 
-def slstm_apply(p: SLSTM, cfg, x):
+def _slstm_wx(p: SLSTM, x, tp, sharded: bool):
+    """Every gate's input projection, [b, s, 4D] float32 on every rank: on
+    a mesh ``w`` is column-parallel and the pre-activations are gathered
+    once, before the loop, which every rank then runs whole (the
+    recurrence ``r`` is replicated), so no collective runs inside it."""
+    return tp.gather_whole(tp.enter(x, sharded) @ p.w.to(x.dtype), -1, sharded)
+
+
+def slstm_apply(p: SLSTM, cfg, x, tp=None):
+    tp = tp or ONE
+    sh = tp.sharded(p)
     b, _, D = x.shape
-    wx = x @ p.w.to(x.dtype)
+    wx = _slstm_wx(p, x, tp, sh)
     state = tuple(torch.zeros((b, D), dtype=torch.float32, device=x.device)
                   for _ in range(4))
     h, _ = _slstm_scan(p, cfg, wx, state)
-    return _slstm_out(p, h, x.dtype)
+    return _slstm_out(p, h, x.dtype, tp, sh)
 
 
 def slstm_init_cache(cfg, batch: int, dtype, device) -> dict:
@@ -289,7 +383,12 @@ def slstm_init_cache(cfg, batch: int, dtype, device) -> dict:
             for k in "cnhm"}
 
 
-def slstm_decode(p: SLSTM, cfg, x1, cache: dict):
-    wx = x1 @ p.w.to(x1.dtype)
-    h, (c, n, hh, m) = _slstm_scan(p, cfg, wx, tuple(cache[k] for k in "cnhm"))
-    return _slstm_out(p, h, x1.dtype), {"c": c, "n": n, "h": hh, "m": m}
+def slstm_decode(p: SLSTM, cfg, x1, cache: dict, tp=None):
+    """One step; on a mesh the state (split along D by the table) is
+    gathered whole for the step and cut back after it."""
+    tp = tp or ONE
+    sh = tp.sharded(p)
+    wx = _slstm_wx(p, x1, tp, sh)
+    st = tp.state_whole(cache)
+    h, (c, n, hh, m) = _slstm_scan(p, cfg, wx, tuple(st[k] for k in "cnhm"))
+    return _slstm_out(p, h, x1.dtype, tp, sh), tp.state_part({"c": c, "n": n, "h": hh, "m": m})

@@ -66,8 +66,8 @@ def make_decode_step(cfg: ArchConfig, mesh=None, shape=None,
     pspecs = shd.param_pspecs(cfg, meta, mesh)
     cache = M.init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
     shardings = dict(params=pspecs,
-                     cache=shd.layer_cache_specs(cfg, cache, mesh,
-                                                 seq_shard=settings.seq_shard_cache),
+                     cache=(shd.cache_pspecs if cfg.is_encdec else shd.layer_cache_specs)(
+                         cfg, cache, mesh, seq_shard=settings.seq_shard_cache),
                      token=tok_spec, logits=shd.Spec((tok_spec[0], "model")),
                      pos=shd.Spec(), pspecs=pspecs)
     return sharded_decode_fn, shardings
@@ -118,9 +118,10 @@ def make_prefill_step(cfg: ArchConfig, mesh=None, shape=None, *, _attention=None
 
     @torch.no_grad()
     def sharded_prefill_fn(params, batch):
-        tokens = torch.as_tensor(batch["tokens"])
-        tokens = tokens[shd.local_slices(in_specs["tokens"], tuple(tokens.shape), mesh)]
-        logits, _ = params.forward(tokens, attention=_attention, rows_split=rows_split)
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        specs = shd.input_pspecs(cfg, "prefill", batch, mesh)
+        local = {k: v[shd.local_slices(specs[k], tuple(v.shape), mesh)] for k, v in batch.items()}
+        logits, _ = params.forward(local, attention=_attention, rows_split=rows_split)
         return logits
 
     pspecs = shd.param_pspecs(cfg, M.param_specs(cfg), mesh)

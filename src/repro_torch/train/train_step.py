@@ -278,7 +278,8 @@ def _make_sharded_step(cfg: ArchConfig, mesh, inputs_spec, settings: TrainSettin
         shd.set_sequence_parallel(settings.seq_parallel)
         try:
             with _phase("forward", dev):
-                logits, aux = params.forward(lb["tokens"], remat=settings.remat,
+                inputs = {k: v for k, v in lb.items() if k != "labels"}
+                logits, aux = params.forward(inputs, remat=settings.remat,
                                              attention=_attention, rows_split=rows_split)
                 labels = lb["labels"]
                 mask = torch.ones(labels.shape, dtype=torch.float32, device=dev)

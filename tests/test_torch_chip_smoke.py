@@ -576,16 +576,28 @@ def test_train_path_pins_its_full_size():
     assert (resume["seq_len"], resume["global_batch"]) == (32, 4)
 
 
-MESH_TINY = dict(train=dict(arch="qwen2.5-3b", smoke=True, b=2, s=16,
-                            opt=dict(lr=3e-4, warmup_steps=2, total_steps=100)),
-                 serve_argv=["--knn", "--smoke"] + LM_ARGV)
+MESH_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+MESH_TINY = dict(train=dict(arch="qwen2.5-3b", smoke=True, b=2, s=16, opt=MESH_OPT),
+                 serve_argv=["--knn", "--smoke"] + LM_ARGV,
+                 families=dict(
+                     hybrid=dict(arch="jamba-v0.1-52b", smoke=True, overrides={"n_layers": 8},
+                                 prefill_b=2, prefill_s=16,
+                                 serve_argv=["--arch", "jamba-v0.1-52b", "--knn"] + LM_ARGV),
+                     xlstm=dict(arch="xlstm-1.3b", smoke=True, overrides={},
+                                serve_argv=["--arch", "xlstm-1.3b", "--knn"] + LM_ARGV,
+                                train=dict(overrides={"n_layers": 8}, b=2, s=16, steps=3,
+                                           opt=MESH_OPT)),
+                     audio=dict(arch="whisper-tiny", smoke=True, b=2, frames=24, tokens=16,
+                                decode_steps=8, train_steps=3, opt=MESH_OPT)))
 
 
 def test_mesh_path_rehearses_on_the_cpu():
     """``run_mesh`` over a one-rank gloo group after ``run_train``: M1's
     losses and grad norms bitwise T1's, M2's tokens bitwise the
     single-device ``launch/serve --knn``'s on the same argv and its decode
-    step's logits bitwise the one-device decode step's."""
+    step's logits bitwise the one-device decode step's; M3's jamba, xlstm
+    and whisper runs bitwise their one-device runs (tokens, logits, losses,
+    grad norms)."""
     import copy
 
     from repro.configs.all_archs import smoke_config
@@ -596,11 +608,22 @@ def test_mesh_path_rehearses_on_the_cpu():
             f"__import__('repro_torch.launch.serve', fromlist=['x']).main("
             f"{MESH_TINY['serve_argv'] + ['--device', 'cpu']!r})))"
             f"(run_train({tcfg!r}, 'cpu'))")
-    phases, mesh, m1, m2, logits, launches = _rehearse(
+    phases, mesh, m1, m2, logits, launches, hy, xl, au = _rehearse(
         call, keep=("train_sharded", "serve_sharded", "serve_sharded_logits",
-                    "mesh_path_launches"))
-    assert phases[-4:] == ["train_sharded", "serve_sharded", "serve_sharded_logits",
-                           "mesh_path_launches"]
+                    "mesh_path_launches", "mesh_hybrid", "mesh_xlstm", "mesh_audio"))
+    assert phases[-7:] == ["train_sharded", "serve_sharded", "mesh_hybrid", "mesh_xlstm",
+                           "mesh_audio", "serve_sharded_logits", "mesh_path_launches"]
+    # M3: every run held bitwise to one device
+    assert hy["prefill"]["max_abs_err"] == 0.0 == hy["prefill"]["tolerance"]
+    assert (hy["prefill"]["b"], hy["prefill"]["s"], hy["n_layers"]) == (2, 16, 8)
+    assert hy["serve"]["tokens_bitwise"] and not hy["trains"]
+    assert xl["serve"]["tokens_bitwise"] and xl["n_layers"] == 16
+    t = xl["train"]
+    assert t["bitwise_one_device"] and t["n_layers"] == 8 and len(t["losses"]) == 3
+    assert au["forward"]["max_abs_err"] == 0.0 and au["decode"]["max_abs_err"] == 0.0
+    assert au["decode"]["tokens_bitwise"] and au["decode"]["steps"] == 8
+    assert au["train"]["bitwise_one_device"] and len(au["train"]["grad_norms"]) == 3
+    assert set(launches["m3_seconds"]) == {"mesh_hybrid", "mesh_xlstm", "mesh_audio"}
     assert m1["bitwise_t1"] and m1["steps"] == 4 and len(m1["losses"]) == 4
     assert m1["mesh"] == {"data": 1, "model": 1} and m1["backend"] == "gloo"
     assert set(m1["profile"]["phases"]) == {"forward", "backward", "optimizer"}
@@ -611,7 +634,11 @@ def test_mesh_path_rehearses_on_the_cpu():
     assert logits["distinct_tokens_fed"] > 1
     assert set(mesh["counts"]) == {"frontier", "frontier_pruned", "frontier_wide",
                                    "frontier_wide_pruned", "distance", "flash"}
-    assert set(mesh["per_pass"]) == {"train_step", "decode_step_knn", "decode_step_knn_pruned"}
+    assert set(mesh["per_pass"]) == {
+        "train_step", "decode_step_knn", "decode_step_knn_pruned", "hybrid_prefill",
+        "hybrid_decode_step_knn", "hybrid_decode_step_knn_pruned", "xlstm_decode_step_knn",
+        "xlstm_decode_step_knn_pruned", "xlstm_train_step", "audio_forward",
+        "audio_prefill_cache", "audio_train_step"}
     assert launches["seconds"] > 0
 
 
@@ -646,3 +673,19 @@ def test_mesh_path_pins_its_size():
     assert (m["arch"], m["smoke"], m["b"], m["s"], m["opt"]) == (
         t["arch"], t["smoke"], t["b"], t["s"], t["opt"])
     assert chip_smoke.MESH_FULL["serve_argv"] == chip_smoke.LM_FULL["serve_argv"] == ["--knn"]
+    fam, lm = chip_smoke.MESH_FULL["families"], chip_smoke.LM_FAMILIES_FULL
+    # M3: jamba's full-width period as the family phase serves it, at the
+    # family phase's prefill; xlstm-1.3b at full depth served, one 8-layer
+    # period trained at b=2 x 2048; whisper-tiny at full size
+    h = fam["hybrid"]
+    assert (h["arch"], h["smoke"], h["overrides"]) == ("jamba-v0.1-52b", False, {"n_layers": 8})
+    assert (h["prefill_b"], h["prefill_s"]) == (4, 2048)
+    assert h["serve_argv"] == lm["hybrid"]["serve_argv"]
+    x = fam["xlstm"]
+    assert (x["arch"], x["smoke"], x["overrides"]) == ("xlstm-1.3b", False, {})
+    assert x["serve_argv"] == lm["xlstm"]["serve_argv"]
+    assert (x["train"]["overrides"], x["train"]["b"], x["train"]["s"], x["train"]["steps"]) \
+        == ({"n_layers": 8}, 2, 2048, 3)
+    a = fam["audio"]
+    assert (a["arch"], a["smoke"], a["b"], a["frames"], a["tokens"], a["decode_steps"]) == (
+        "whisper-tiny", False, 16, 1500, 448, 64)
