@@ -287,13 +287,39 @@ NCCL across ranks is not exercised):
       norms); ms, tokens/s, peak GB, the idle share of one run
       (``device_busy``) and flash and wide launches by pass.
 
+The dry-run path and the examples (``run_dryrun``), after the mesh path,
+counted under ``launches_by_path.dryrun`` and ``.examples``:
+
+  D1. dryrun: ``launch/dryrun.py``'s cells in a process of their own (each
+      holds a fake default process group of the mesh's size; meta
+      tensors, nothing on the card), started first and read last: one
+      cell of every family on the 16 x 16 mesh, all ``ok``, each with its
+      bottleneck, three terms and static GB per device beside 80; the
+      long_500k cells of the eight full-attention archs ``skipped`` with
+      the reference's reason; T1's cell at mesh (1, 1);
+  D2. forest_dryrun: ``launch/forest_dryrun.py``'s reference cell (262,144
+      objects, dim 64, 16 shards, b=256, k=8, F=64, l2) in another
+      process: rank 0's step on the card through the narrow kernel,
+      bitwise to the plain scorer, its device ms beside its three terms;
+  E.  examples: the four examples on the card; ``quickstart`` and
+      ``distributed_index`` print what their ``--device cpu`` runs print
+      (every kNN distance, id and page hit), ``knnlm_serve`` runs through
+      its ``validate()``, ``train_lm``'s resumed loss equals an
+      uninterrupted run's, bitwise;
+  D3. dryrun_vs_card: T1's static parameter and optimizer bytes against
+      the growth of ``memory_allocated`` across ``init_all``; its meta
+      FLOPs, bytes and collectives against one real step of the same mesh
+      program on the card under the same recorder (one-rank NCCL group),
+      equal; T1's measured ms a step against its bound and model FLOPs.
+
 The last three lines are the ``kernels`` line (every TPU kernel's port,
 the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
 library ms; ``launches_by_path`` gives every path's count apart: ``index``
 and ``forest`` for the narrow rows and the scan, ``lm``, ``lm_moe``,
 ``lm_hybrid``, ``lm_xlstm`` and ``lm_audio`` for the LM rows, and
-``stream``, ``serve``, ``train`` and ``mesh`` for all; the
+``stream``, ``serve``, ``train``, ``mesh``, ``dryrun`` and ``examples``
+for all; the
 distance scan at the index path's shape, with
 its device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -304,6 +330,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import subprocess
@@ -407,10 +434,6 @@ MESH_FULL = dict(train=dict(arch="qwen2.5-3b", smoke=False, b=2, s=2048,
                      audio=dict(arch="whisper-tiny", smoke=False, b=16, frames=1500,
                                 tokens=448, decode_steps=64, train_steps=3,
                                 opt=dict(lr=3e-4, warmup_steps=2, total_steps=100))))
-H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
-H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
-H100_TF32_FLOP_PER_S = 495e12     # tensor cores, dense (H100 SXM data sheet)
-H100_BF16_FLOP_PER_S = 989e12     # tensor cores, dense (H100 SXM data sheet)
 
 
 def emit(phase: str, **kw):
@@ -467,18 +490,19 @@ def timers(on_card: bool):
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = nops / H100_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, what bounds it) at the H100's HBM rate and f32 CUDA-core peak
+    (the constants of ``repro_torch.roofline.analysis``)."""
+    from repro_torch.roofline.analysis import bound as h100_bound
+    return h100_bound(nbytes, nops)
 
 
 def flash_bound(nbytes: float, nops: float, dtype: str) -> tuple[float, str]:
     """The flash kernel's bound at the arithmetic it uses: three TF32
     products per f32 product (3xTF32), one bf16 product per bf16 one."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = (3 * nops / H100_TF32_FLOP_PER_S if dtype == "float32"
-             else nops / H100_BF16_FLOP_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    from repro_torch.roofline import analysis as RA
+    if dtype == "float32":
+        return RA.bound(nbytes, 3 * nops, RA.H100_TF32_FLOP_PER_S)
+    return RA.bound(nbytes, nops, RA.H100_BF16_FLOP_PER_S)
 
 
 def ptxas_summary(log: str) -> dict:
@@ -515,25 +539,15 @@ def ptxas_summary(log: str) -> dict:
 
 
 def frontier_traffic(fids, queries, want, cap: int, prune: bool):
-    """(bytes, ops, live entries) of one frontier scoring on this data: each
-    referenced page's radius/validity (+pdist) rows and each live entry's
-    vector read once, the four outputs written once; 3 ops per dimension of
-    a live entry and 4 per output slot."""
-    import torch
+    """(bytes, ops, live entries) of one frontier scoring on this data
+    (``repro_torch.roofline.counts.frontier_work``, the formula the dry
+    run counts): each referenced page's radius/validity (+pdist) rows and
+    each live entry's vector read once, the four outputs written once; 3
+    ops per dimension of a live entry and 4 per output slot."""
+    from repro_torch.roofline.counts import frontier_work
+    nops, nbytes = frontier_work(fids, queries, want, cap, prune)
     b, F = fids.shape
-    dim = queries.shape[1]
-    live = torch.isfinite(want[0]) | torch.isfinite(want[2])
-    n_live = int(live.sum())
-    nodes = fids.clamp(min=0).long()
-    entry = nodes[:, :, None] * cap + torch.arange(cap, device=fids.device)
-    n_vec_rows = torch.unique(entry[live]).numel()
-    n_pages = torch.unique(nodes[fids >= 0]).numel()
-    per_page = cap * (4 + 1 + 1 + (4 if prune else 0))
-    nbytes = (fids.numel() * 4 + queries.numel() * 4
-              + n_pages * per_page + n_vec_rows * dim * 4
-              + (b * F * 4 + b * 4 if prune else 0)
-              + 4 * b * F * cap * 4)
-    return nbytes, n_live * dim * 3 + 4 * b * F * cap, n_live
+    return nbytes, nops, int(nops - 4 * b * F * cap) // (3 * queries.shape[1])
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -929,6 +943,7 @@ def run(cfg: dict, device: str):
                                               pairwise_distance_torch)
     from repro_torch.kernels.frontier import (frontier_scores,
                                               frontier_scores_torch)
+    from repro_torch.roofline.counts import distance_work
 
     on_card = device == "cuda"
     dev = torch.device(device)
@@ -1005,7 +1020,8 @@ def run(cfg: dict, device: str):
             plain_ms = time_ms(lambda: pairwise_distance_torch(q, e, metric), iters=3,
                                warmup=1)
             lib_ms = time_ms(libcalls[metric], iters=5, warmup=1) if on_card else None
-            bms, by = bound((nq * dim + ne * dim + nq * ne) * 4, nq * ne * dim * 3)
+            nops, nbytes = distance_work(nq, ne, dim, prune=False)
+            bms, by = bound(nbytes, nops)
             dist_rows[(shape, metric)] = dict(
                 ms=ms, device_ms=device_ms(kernel) if on_card else None,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
@@ -1634,6 +1650,7 @@ def run_lm(cfg: dict, device: str):
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.models.transformer import hidden_states
+    from repro_torch.roofline.counts import distance_work, flash_work
     from repro_torch.serve.knnlm import KnnLmConfig, KnnLmDatastore
     from repro_torch.serve.serve_step import make_prefill_step
 
@@ -1715,11 +1732,8 @@ def run_lm(cfg: dict, device: str):
         row = dict(shape=[fb, h, hk, sq, sk, d], causal=causal, dtype=dt,
                    max_abs_err=err, tol=tol)
         if name.startswith(("path", "whisper")):
-            # visible (query, key) pairs, bottom-right causal
-            qpos = np.arange(sq) + (sk - sq)
-            pairs = int(np.clip(qpos + 1, 0, sk).sum()) if causal else sq * sk
-            nops = 4.0 * fb * h * d * pairs
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            # 4 d operations per visible (query, key) pair, bottom-right causal
+            nops, nbytes = flash_work(fb, h, hk, sq, sk, d, causal, q.element_size())
             bms, by = flash_bound(nbytes, nops, dt)
             row.update(ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal),
                                   iters=10),
@@ -1759,7 +1773,8 @@ def run_lm(cfg: dict, device: str):
         true_d = wd.clamp_min(0).double().sqrt() if metric == "sqeuclidean" else wd.double()
         decided = (true_d - (r_q[:, None] + r_e[None, :]).double()).abs() > 1e-6
         check(torch.equal(gm[decided], wm[decided]), f"prune {metric}: masks differ")
-        bms, by = bound((nq * d + ne * d + nq + ne) * 4 + nq * ne * 5, nq * ne * d * 3)
+        nops, nbytes = distance_work(nq, ne, d, prune=True)
+        bms, by = bound(nbytes, nops)
         kernel = lambda: pairwise_distance_prune(q, e, r_q, r_e, metric)
         prune_rows[metric] = dict(
             ms=time_ms(kernel), device_ms=device_ms(kernel) if on_card else None,
@@ -4308,6 +4323,319 @@ def run_mesh(cfg: dict, device: str, t1: dict, lm_toks) -> dict:
         audio_train_step=au["train"]["flash_launches_per_step"]))
 
 
+# the new paths after the mesh path (run_dryrun, run_examples): one dry-run
+# cell of every family on the 16 x 16 mesh (the full sweep, `python -m
+# repro_torch.launch.dryrun --all --mesh both`, takes ~15 min and runs on its
+# own), the long_500k skips of the eight full-attention archs, T1's cell at
+# (1, 1) held against the card, the forest dry run's reference cell, and the
+# four examples (the LM ones cut to 60 and 24 steps and one datastore batch)
+DRYRUN_FULL = dict(
+    cells=[("qwen2.5-3b", "prefill_32k"), ("qwen2-moe-a2.7b", "decode_32k"),
+           ("jamba-v0.1-52b", "long_500k"), ("xlstm-1.3b", "decode_32k"),
+           ("whisper-tiny", "train_4k"), ("internvl2-1b", "prefill_32k")],
+    skips=["codeqwen1.5-7b", "grok-1-314b", "internvl2-1b", "qwen2-moe-a2.7b",
+           "qwen2.5-3b", "starcoder2-3b", "whisper-tiny", "yi-34b"],
+    # T1: qwen2.5-3b in f32 (no padding), train b=2 x 2048, remat on
+    t1=dict(arch="qwen2.5-3b", smoke=False, b=2, s=2048, params=3_085_938_688,
+            cfg_extra=dict(param_dtype="float32", compute_dtype="float32", head_pad=0,
+                           vocab_pad_to=1)),
+    forest_argv=[], examples=dict(knnlm_argv=["--steps", "60", "--store-batches", "1"],
+                                  train_steps=24))
+# the most a block can hold beyond its tensor: the caching allocator does
+# not split a cached block when at most 1 MiB would remain (kSmallSize)
+ALLOC_SPLIT = 1 << 20
+
+
+def dryrun_worker(cfg: dict, out: str, part: str) -> None:
+    """The dry-run phase's cells, in a process of their own (each cell
+    holds a fake default process group), one record each under ``out``:
+    ``part`` "cells", ``cfg["cells"]`` on the 16 x 16 mesh and the
+    long_500k cells of ``cfg["skips"]``; "t1", T1's cell at mesh (1, 1)
+    tagged ``t1``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    if part == "cells":
+        for arch, shape in cfg["cells"]:
+            dryrun.run_cell(arch, shape, "pod", out_dir=out)
+        for arch in cfg["skips"]:
+            dryrun.run_cell(arch, "long_500k", "pod", out_dir=out)
+        return
+    t1 = cfg["t1"]
+    dryrun.run_cell(t1["arch"], "t1", "1x1", tag="t1", out_dir=out, smoke=t1["smoke"],
+                    shape=ShapeSpec("t1", t1["s"], t1["b"], "train"),
+                    mesh=AbstractMesh(("data", "model"), (1, 1)), cfg_extra=t1["cfg_extra"])
+
+
+def start_python(code: str, out_path: Path):
+    """``python -c code`` with this checkout's ``src`` and root on the
+    path, its output to ``out_path``."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root / "src"), str(root)]),
+               OMP_NUM_THREADS="1")
+    f = open(out_path, "w")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env, stdout=f,
+                            stderr=subprocess.STDOUT), f
+
+
+def finish(proc, f, out_path: Path, what: str, timeout: float) -> str:
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        f.close()
+    text = out_path.read_text()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: {text[-3000:]}")
+    return text
+
+
+def dryrun_vs_card(cfg: dict, device: str, rec: dict, t1_ms: float) -> dict:
+    """``dryrun_vs_card``: T1's cell (``rec``, the dry run's record at mesh
+    (1, 1)) against the device.  (a) Its parameter and optimizer bytes
+    against the growth of ``memory_allocated`` across ``init_all`` (each
+    tensor rounded up to the allocator's 512 B at most); (b) its FLOPs,
+    bytes and collective bytes against one real step of the same mesh
+    program on the device under the same recorder (a one-rank process
+    group: NCCL on the card, gloo on the CPU); (c) T1's measured ms a step
+    against its bound and ``model_flops``."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh, make_host_mesh
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.train.train_step import init_all
+
+    on_card = device == "cuda"
+    t1 = cfg["t1"]
+    base = smoke_config(t1["arch"]) if t1["smoke"] else get_config(t1["arch"])
+    mcfg = dataclasses.replace(dryrun._bf16(base), **t1["cfg_extra"])
+    shape = ShapeSpec("t1", t1["s"], t1["b"], "train")
+    static = rec["static_memory"]
+    want = static["params_bytes_dev"] + static["opt_bytes_dev"]
+    # (a) bytes: the caching allocator's requested bytes grow by exactly the
+    # dry run's bytes and the optimizer's int32 step; its allocated bytes by
+    # those rounded up, to 512 B a block, and a block of more than 1 MiB
+    # cut from a free block may keep up to 1 MiB more rather than split it
+    def mem():
+        if not on_card:
+            return 0, 0
+        st = torch.cuda.memory_stats()
+        return st["requested_bytes.all.current"], st["allocated_bytes.all.current"]
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    r0, a0 = mem()
+    params, opt = init_all(mcfg, 0, device=device)
+    r1, a1 = mem()
+    requested, grown = r1 - r0, a1 - a0
+    n_tensors = len(list(params.parameters())) + len(opt.mu) + len(opt.nu) + 1
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, opt
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        check(requested == want + 4, f"dryrun_vs_card: init_all requested {requested} B, "
+                                     f"the dry run says {want} B and the step's 4")
+        check(0 <= grown - want <= ALLOC_SPLIT * n_tensors,
+              f"dryrun_vs_card: init_all grew memory_allocated by {grown} B, the dry run "
+              f"says {want} B (+ at most {ALLOC_SPLIT} B a tensor, {n_tensors} tensors)")
+    check(n_params == rec["params"] and t1["params"] in (None, n_params),
+          f"dryrun_vs_card: {n_params} parameters, the dry run's {rec['params']}")
+    # (b) the counts of one real step under the same recorder
+    root = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"file://{root}/rendezvous", rank=0, world_size=1)
+    try:
+        run, _ = dryrun.build_cell(mcfg, shape, AbstractMesh(("data", "model"), (1, 1)),
+                                   make_host_mesh(1, 1, device=device), device=device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        card, _ = dryrun.count_step(run)
+        if on_card:
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    meta = rec["counts"]
+    same = {k: card[k] == meta[k] for k in ("flops", "bytes", "collectives", "kernels")}
+    check(all(same.values()), f"dryrun_vs_card: the dry run's counts differ from the "
+                              f"device's: {same}; meta {meta}; device {card}")
+    # (c) T1's share of its bound
+    roof = rec["roofline"]
+    mf = RA.model_flops(mcfg, shape)
+    peak = RA.PEAK_FLOP_PER_S[mcfg.compute_dtype]
+    out = dict(arch=t1["arch"], b=t1["b"], s=t1["s"], dtype=mcfg.compute_dtype,
+               static_bytes=want, requested_growth=requested, allocated_growth=grown,
+               tensors=n_tensors, allocated_minus_static=grown - want, counts_equal=same,
+               flops=card["flops"], bytes=card["bytes"], collectives=card["collectives"],
+               kernels=card["kernels"], n_ops=card["n_ops"], step_seconds_recorded=step_s,
+               peak_gb=peak_gb, model_flops=mf, model_flops_s=mf / peak,
+               compute_s=roof["compute_s"], memory_s=roof["memory_s"],
+               collective_s=roof["collective_s"], bound_s=roof["step_s"],
+               bottleneck=roof["bottleneck"], t1_ms=t1_ms,
+               t1_share_of_model_flops=(mf / peak) / (t1_ms / 1e3) if t1_ms else None,
+               t1_share_of_bound=roof["step_s"] / (t1_ms / 1e3) if t1_ms else None,
+               predicted=dict(model_flops=7.584e13, model_flops_s=1.132, share=0.42,
+                              compute_s=[1.5, 1.7], memory_s="unknown"))
+    emit("dryrun_vs_card", **out)
+    return out
+
+
+def run_dryrun(cfg: dict, device: str, t1_ms: float) -> tuple[dict, dict]:
+    """The dry-run path and the examples.  ``dryrun_worker``'s cells run in
+    two processes of their own (T1's cell in one, the others in the other;
+    each cell holds a fake default process group; meta tensors, no card),
+    started first and read last; meanwhile
+    ``forest_dryrun`` (the reference's cell, rank 0's step on the device,
+    in a process of its own too), then the examples (``run_examples``,
+    counted apart); then ``dryrun`` (the cells' records) and
+    ``dryrun_vs_card`` here.  The dry-run path's launches: the forest
+    process's (from its record) and ``dryrun_vs_card``'s, counted from 0.
+    Returns (the dry-run path's counts, the examples')."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_rec_"))
+    workers, fproc = {}, (None, None)
+    try:
+        for part in ("t1", "cells"):
+            workers[part] = start_python(f"import chip_smoke; chip_smoke.dryrun_worker("
+                                         f"{cfg!r}, {str(out)!r}, {part!r})",
+                                         out / f"dryrun_{part}.log")
+        fargv = cfg["forest_argv"] + ["--device", device, "--out", str(out)]
+        fproc = start_python(f"from repro_torch.launch import forest_dryrun; "
+                             f"forest_dryrun.main({fargv!r})", out / "forest.log")
+        flog = finish(*fproc, out / "forest.log", "forest_dryrun", 600)
+        forest = json.loads((out / "forest_knn__base.json").read_text())
+        check(forest["bitwise_vs_plain"], "forest_dryrun: not bitwise to the plain scorer")
+        r = forest["roofline"]
+        emit("forest_dryrun", **{k: forest[k] for k in (
+            "n", "dim", "batch", "rank_batch", "k", "capacity", "frontier", "metric",
+            "build_s", "device_ms", "height", "heights", "n_nodes_per_shard", "useful_flops",
+            "bitwise_vs_plain", "launches")},
+             compute_s=r["compute_s"], memory_s=r["memory_s"], collective_s=r["collective_s"],
+             bottleneck=r["bottleneck"], roofline_frac=r["roofline_frac"],
+             flops=r["flops"], bytes=r["bytes_accessed"], log=flog.strip().splitlines()[-1])
+        examples = run_examples(cfg["examples"], device)
+        for part, (proc, f) in workers.items():
+            finish(proc, f, out / f"dryrun_{part}.log", f"the dry run's {part}", 900)
+        recs = {p.stem: json.loads(p.read_text()) for p in out.glob("*__*.json")
+                if not p.stem.startswith("forest_knn")}
+        cells = {}
+        for arch, shape in cfg["cells"]:
+            rec = recs[f"{arch}__{shape}__pod"]
+            check(rec["status"] == "ok", f"dryrun {arch} x {shape}: {rec.get('error')}")
+            ro, st = rec["roofline"], rec["static_memory"]
+            cells[f"{arch}/{shape}"] = dict(
+                bottleneck=ro["bottleneck"], compute_s=ro["compute_s"],
+                memory_s=ro["memory_s"], collective_s=ro["collective_s"],
+                roofline_frac=ro["roofline_frac"], static_gb=st["total_bytes_dev"] / 1e9,
+                of_gb=80, trace_s=rec["trace_s"], kernels=rec["counts"]["kernels"])
+        from repro_torch.configs.base import SHAPES, get_config, shape_applicable
+        reason = shape_applicable(get_config("qwen2.5-3b"), SHAPES["long_500k"])[1]
+        for arch in cfg["skips"]:
+            rec = recs[f"{arch}__long_500k__pod"]
+            check(rec["status"] == "skipped" and rec["reason"] == reason,
+                  f"dryrun {arch} x long_500k: {rec['status']}")
+        emit("dryrun", mesh="pod", cells=cells, skipped=len(cfg["skips"]),
+             skip_reason=reason, seconds=time.perf_counter() - t0)
+        zero_counts()
+        card = dryrun_vs_card(cfg, device, recs["qwen2.5-3b__t1__1x1__t1"], t1_ms)
+        c = stream_counts()
+    finally:
+        for p, f in [fproc] + list(workers.values()):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+            if f is not None:
+                f.close()
+        shutil.rmtree(out, ignore_errors=True)
+    fl = forest["launches"]
+    counts = dict(frontier=c["frontier"] + fl["frontier"],
+                  frontier_pruned=c["frontier_pruned"] + fl["frontier_pruned"],
+                  frontier_wide=0, frontier_wide_pruned=0, distance=c["distance"],
+                  flash=c["flash"])
+    emit("dryrun_path_launches", **counts, seconds=time.perf_counter() - t0)
+    if device == "cuda":
+        check(c["frontier_wide"] == 0 and fl["frontier_wide"] == 0,
+              f"a wide frontier launch on the dry-run path: {c}, {fl}")
+        for name in ("frontier", "frontier_pruned", "flash"):
+            check(counts[name] > 0, f"kernel {name} never launched on the dry-run path")
+    return dict(counts=counts, per_pass=dict(
+        train_step=card["kernels"]["flash_attention_fwd"]["calls"],
+        forest_step=fl["per_step"])), examples
+
+
+def run_examples(cfg: dict, device: str) -> dict:
+    """The four examples on the device, launch counts zeroed just before
+    and read just after: ``quickstart`` and ``distributed_index`` held
+    against the same examples with ``--device cpu`` (the index is bitwise,
+    so every kNN distance, id and page hit must agree), ``knnlm_serve``
+    (through its ``validate()``), ``train_lm`` (its resumed final loss
+    against an uninterrupted run of the same steps through
+    ``launch/train.main``, bitwise).  The CPU runs and the uninterrupted
+    run are checks, outside the counts."""
+    from repro_torch.examples import distributed_index, knnlm_serve, quickstart, train_lm
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    dev = ["--device", device]
+    zero_counts()
+    got, secs = {}, {}
+    for name, fn, argv in (("quickstart", quickstart.main, []),
+                           ("distributed_index", distributed_index.main, []),
+                           ("knnlm_serve", knnlm_serve.main, cfg["knnlm_argv"]),
+                           ("train_lm", train_lm.main,
+                            ["--steps", str(cfg["train_steps"])])):
+        t = time.perf_counter()
+        got[name] = fn(argv + dev)
+        secs[name] = time.perf_counter() - t
+    c = stream_counts()
+    with uncounted():       # (a CPU rehearsal has no other device to hold them to)
+        cpu = {} if device == "cpu" else {
+            name: fn(["--device", "cpu"]) for name, fn in
+            (("quickstart", quickstart.main), ("distributed_index", distributed_index.main))}
+        straight = train.main(["--smoke", "--steps", str(cfg["train_steps"]), "--log-every",
+                               "20"] + dev)
+    for name in cpu:
+        for key, v in cpu[name].items():
+            check(got[name][key] == v, f"examples: {name}'s {key} differs from its CPU run")
+    ks = got["knnlm_serve"]
+    check(ks["evicted"] == ks["entries"] // 2, f"knnlm_serve evicted {ks['evicted']}")
+    check(got["train_lm"] == straight,
+          f"train_lm: resumed {got['train_lm']!r} != straight {straight!r}")
+    counts = dict(frontier=c["frontier"], frontier_pruned=c["frontier_pruned"],
+                  frontier_wide=0, frontier_wide_pruned=0, distance=c["distance"],
+                  flash=c["flash"])
+    same = bool(cpu)
+    emit("examples", seconds=secs, quickstart=dict(same_as_cpu=same, **{
+        k: got["quickstart"][k] for k in ("page_hits", "range_hits0", "ref_knn")}),
+         distributed_index=dict(same_as_cpu=same, deleted=got["distributed_index"]["deleted"]),
+         knnlm_serve=ks, train_lm=dict(steps=cfg["train_steps"], resumed=got["train_lm"],
+                                       straight=straight, bitwise=True),
+         launches=counts, total_seconds=time.perf_counter() - t0)
+    if device == "cuda":
+        check(c["frontier_wide"] == 0, f"a wide frontier launch in the examples: {c}")
+        for name in ("frontier", "frontier_pruned", "distance", "flash"):
+            check(counts[name] > 0, f"kernel {name} never launched by the examples")
+    return dict(counts=counts, per_pass={})
+
+
 def with_families(rows: list, fam: dict) -> list:
     """The ``kernels`` line's rows with each family phase's count under
     ``launches_by_path[phase]`` (``with_path``) and, on the flash and wide
@@ -4399,10 +4727,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh = run_mesh(MESH_FULL, "cuda", train["t1"], lm_toks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry, examples = run_dryrun(DRYRUN_FULL, "cuda", train["t1"]["mean_step_ms"])
     narrow, narrow_pruned, scan = with_forest(index_rows, forest)
     kernels = with_families(with_path(with_path(
         [narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash], stream, "stream"),
-        serve, "serve"), {**fam, "train": train, "mesh": mesh})
+        serve, "serve"), {**fam, "train": train, "mesh": mesh, "dryrun": dry,
+                          "examples": examples})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,8 @@
+"""Config for codeqwen1.5-7b (see all_archs.py for the authoritative numbers)."""
+from repro_torch.configs.base import get_config
+
+ARCH_ID = "codeqwen1.5-7b"
+
+
+def config(**overrides):
+    return get_config(ARCH_ID, **overrides)

@@ -1,0 +1,8 @@
+"""Config for qwen2.5-3b (see all_archs.py for the authoritative numbers)."""
+from repro_torch.configs.base import get_config
+
+ARCH_ID = "qwen2.5-3b"
+
+
+def config(**overrides):
+    return get_config(ARCH_ID, **overrides)

@@ -198,12 +198,18 @@ class TP:
         spec = spec[0] if isinstance(spec, tuple) and not isinstance(spec, shd.Spec) else spec
         return shd._axes_of(spec[dim]) if dim < len(spec) else ()
 
+    def cache_offset(self, key: str, dim: int, S: int) -> int:
+        """The first position of this rank's ``S`` slots of the sequence dim
+        ``dim`` of cache leaf ``key`` (0 where it is whole)."""
+        axes = self._cache_entry(key, dim)
+        return shd.shard_index(axes, self.mesh)[0] * S if axes else 0
+
     def cache_positions(self, key: str, dim: int, S: int, device):
         """The positions of this rank's ``S`` slots of the sequence dim
         ``dim`` of cache leaf ``key`` (``arange(S)`` where it is whole),
         and the log-sum-exp merge over the axes that split it (None)."""
         axes = self._cache_entry(key, dim)
-        lo = shd.shard_index(axes, self.mesh)[0] * S if axes else 0
+        lo = self.cache_offset(key, dim, S)
         idx = torch.arange(lo, lo + S, device=device) if lo else torch.arange(S, device=device)
         if not axes:
             return idx, None

@@ -32,6 +32,8 @@ import functools
 
 import torch
 
+from repro_torch.roofline.counts import distance_work, kernel_call
+
 METRICS = ("d_inf", "sqeuclidean", "ip")
 _METRIC_CODES = {m: i for i, m in enumerate(METRICS)}
 # elements of the plain version's [nq, chunk, d] intermediate per step
@@ -148,10 +150,30 @@ def _launch(lib, q, e, metric: str, r_q=None, r_e=None):
     return out, mask
 
 
+def _work(out, q, e, *args, prune: bool = False, **kwargs):
+    return distance_work(q.shape[0], e.shape[0], q.shape[1], prune)
+
+
+def _prune_work(out, q, e, *args, **kwargs):
+    return _work(out, q, e, prune=True)
+
+
+def _meta(q, e, prune: bool):
+    """The dry run's outputs: shapes only, nothing computed."""
+    out = torch.empty((q.shape[0], e.shape[0]), dtype=torch.float32, device="meta")
+    if not prune:
+        return out
+    return out, torch.empty(out.shape, dtype=torch.bool, device="meta")
+
+
+@kernel_call("pairwise_distance", _work)
 def pairwise_distance(q, e, metric: str = "d_inf"):
     """[nq, d] x [ne, d] -> [nq, ne] distances: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors, an empty output on the
+    meta device."""
     _check_metric(metric)
+    if q.device.type == "meta":
+        return _meta(q, e, False)
     if q.device.type == "cuda":
         return _pairwise_distance_cuda(q.float().contiguous(),
                                        e.float().contiguous(), metric)
@@ -163,10 +185,14 @@ def pairwise_distance(q, e, metric: str = "d_inf"):
 pairwise_distance.launches = 0
 
 
+@kernel_call("pairwise_distance_prune", _prune_work)
 def pairwise_distance_prune(q, e, r_q, r_e, metric: str = "d_inf"):
     """(dist [nq, ne] f32, mask [nq, ne] bool): the CUDA kernel with its
-    prune epilogue for CUDA tensors, the plain version for CPU tensors."""
+    prune epilogue for CUDA tensors, the plain version for CPU tensors,
+    empty outputs on the meta device."""
     _check_metric(metric)
+    if q.device.type == "meta":
+        return _meta(q, e, True)
     if q.device.type == "cuda":
         f = lambda t: torch.as_tensor(t, dtype=torch.float32,
                                       device=q.device).contiguous()

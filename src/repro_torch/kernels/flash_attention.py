@@ -19,7 +19,9 @@ card it refuses what the kernel does not take: head widths above 256,
 mixed dtypes and causal ``sq > sk`` — rows that see no key there get a
 value that depends on the TPU kernel's block size, and no model path asks
 for it (the LM's attention always has ``sq == sk``).
-``flash_attention_fwd.launches`` counts kernel launches.
+``flash_attention_fwd.launches`` counts kernel launches.  On the meta
+device (the dry run) it returns an empty output and computes nothing;
+under a ``roofline.counts.OpCounts`` each forward counts ``flash_work``.
 
 Both devices go through one ``torch.autograd.Function``, the port of the
 reference's ``custom_vjp`` (``repro/kernels/ops.py:_pallas_attention``):
@@ -39,6 +41,7 @@ import functools
 import torch
 
 from repro_torch.kernels.attention_plain import chunked_attention
+from repro_torch.roofline.counts import flash_work, kernel_call
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -101,10 +104,18 @@ def _flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
     return out
 
 
+def _work(out, q, k, v, causal: bool, scale: float):
+    b, h, sq, d = q.shape
+    return flash_work(b, h, k.shape[1], sq, k.shape[2], d, causal, q.element_size())
+
+
+@kernel_call("flash_attention_fwd", _work)
 def _forward(q, k, v, causal: bool, scale: float):
     if q.device.type == "cuda":
         return _flash_attention_cuda(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=causal, scale=scale)
+    if q.device.type == "meta":         # the dry run: shapes only, nothing runs
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {q.device}")
     return flash_attention_torch(q, k, v, causal=causal, scale=scale)

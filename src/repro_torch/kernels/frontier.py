@@ -50,6 +50,7 @@ import functools
 import torch
 
 from repro_torch.core.metric import get_metric
+from repro_torch.roofline.counts import frontier_work, kernel_call
 
 _INF = float("inf")
 
@@ -180,11 +181,21 @@ def _frontier_scores_cuda(fids, queries, vecs, radius, internal_valid,
     return outs
 
 
+def _work(outs, fids, queries, vecs, radius, internal_valid, leaf_valid, *, metric,
+          pdist=None, qpd=None, rq=None):
+    return frontier_work(fids, queries, outs, vecs.shape[1], pdist is not None)
+
+
+@kernel_call("frontier_scores", _work)
 def frontier_scores(fids, queries, vecs, radius, internal_valid, leaf_valid,
                     *, metric: str, pdist=None, qpd=None, rq=None):
     """Score one level's frontier: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  Returns (dmax, score, leaf_d, dq)."""
+    plain version for CPU tensors, empty outputs on the meta device (the
+    dry run computes nothing).  Returns (dmax, score, leaf_d, dq)."""
     prune = _check_prune_args(pdist, qpd, rq)
+    if fids.device.type == "meta":
+        return tuple(torch.empty((*fids.shape, vecs.shape[1]), dtype=torch.float32,
+                                 device="meta") for _ in range(4))
     if fids.device.type == "cuda":
         return _frontier_scores_cuda(
             fids, queries, vecs, radius, internal_valid, leaf_valid,

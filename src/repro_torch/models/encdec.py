@@ -202,7 +202,7 @@ def encdec_prefill_cache(params: EncDec, cfg: ArchConfig, frames, cache: dict, *
     vs = torch.stack([_heads(mem, blk.xattn.wv) for blk in params.dec_blocks])
     S = cache["cross_k"].shape[3]
     if S != ks.shape[3]:
-        lo = tp.cache_positions("cross_k", 3, S, ks.device)[0][0].item()
+        lo = tp.cache_offset("cross_k", 3, S)
         ks, vs = ks[:, :, :, lo:lo + S], vs[:, :, :, lo:lo + S]
     return dict(cache, cross_k=ks.to(cache["cross_k"].dtype),
                 cross_v=vs.to(cache["cross_v"].dtype))

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.smtree import resolve_device
 from repro_torch.models import encdec, transformer
 
@@ -92,3 +92,68 @@ def loss_fn(logits, labels, mask):
 
 def param_count(params) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# input specs (the dry run's stand-ins: meta tensors, nothing allocated)
+# ---------------------------------------------------------------------------
+def _whisper_lens(cfg: ArchConfig, shape: ShapeSpec) -> tuple[int, int]:
+    """Map the LM (seq_len, batch) cell onto enc/dec lengths: the encoder
+    takes seq_len frames; the decoder is bounded by Whisper's 448-position
+    window."""
+    enc = shape.seq_len
+    dec = min(cfg.max_target_len, max(8, shape.seq_len // 8))
+    return enc, dec
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Meta tensors for every model input of this (arch, shape) cell, with
+    the reference's keys, shapes and dtypes."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if cfg.is_encdec:
+        enc, dec = _whisper_lens(cfg, shape)
+        if shape.kind == "train":
+            return {"frames": sds((B, enc, cfg.d_model), f32),
+                    "tokens": sds((B, dec), i32), "labels": sds((B, dec), i32)}
+        if shape.kind == "prefill":
+            return {"frames": sds((B, enc, cfg.d_model), f32), "tokens": sds((B, dec), i32)}
+        return {"token": sds((B,), i32)}
+
+    if cfg.frontend == "vision_stub":
+        n_img = cfg.n_image_tokens
+        s_txt = max(1, S - n_img)
+        if shape.kind == "train":
+            return {"tokens": sds((B, s_txt), i32),
+                    "image_embeds": sds((B, n_img, cfg.d_model), f32),
+                    "labels": sds((B, s_txt + n_img), i32)}
+        if shape.kind == "prefill":
+            return {"tokens": sds((B, s_txt), i32),
+                    "image_embeds": sds((B, n_img, cfg.d_model), f32)}
+        return {"token": sds((B,), i32)}
+
+    if shape.kind == "train":
+        return {"tokens": sds((B, S), i32), "labels": sds((B, S), i32)}
+    if shape.kind == "prefill":
+        return {"tokens": sds((B, S), i32)}
+    return {"token": sds((B,), i32)}
+
+
+def cache_length(cfg: ArchConfig, shape: ShapeSpec) -> int:
+    """The cell's ``init_cache`` length: the sequence's, or for an enc-dec
+    config the encoder's."""
+    return _whisper_lens(cfg, shape)[0] if cfg.is_encdec else shape.seq_len
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeSpec):
+    """The decode cache of this cell on the meta device."""
+    return init_cache(cfg, shape.global_batch, cache_length(cfg, shape), device="meta")
+
+
+def exact_param_count(cfg: ArchConfig) -> int:
+    """Every parameter of the model, counted on the meta device."""
+    return param_count(param_specs(cfg))

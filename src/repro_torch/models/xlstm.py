@@ -42,6 +42,7 @@ from torch import nn
 
 from repro_torch.dist.tp import ONE
 from repro_torch.models.layers import Dense, Norm, _frozen, dense, dense_col, norm, truncated_normal
+from repro_torch.roofline.counts import loop_steps, pad_steps
 
 NEG = -1e30
 
@@ -332,7 +333,9 @@ def _slstm_scan(p: SLSTM, cfg, wx, state):
     r, bias = p.r, p.b
     wx = wx.float()
     hs = []
-    for t in range(s):
+    # all s steps, but a few under the dry run's counter (roofline/counts.py)
+    steps = loop_steps(s)
+    for t in range(steps):
         # one [b, dh] x [dh, 4 dh] product per head (a broadcast matmul
         # would copy r b times a step)
         rh = torch.bmm(h.view(b, H, dh).transpose(0, 1), r).transpose(0, 1)
@@ -346,7 +349,8 @@ def _slstm_scan(p: SLSTM, cfg, wx, state):
         h = torch.sigmoid(o_pre) * (c / n.clamp_min(1e-6))
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1), (c, n, h, m)
+    h_seq = torch.stack(hs, dim=1)
+    return (h_seq if steps == s else pad_steps(h_seq, s)), (c, n, h, m)
 
 
 def _slstm_out(p: SLSTM, h, dtype, tp=ONE, sharded: bool = False):

@@ -689,3 +689,79 @@ def test_mesh_path_pins_its_size():
     a = fam["audio"]
     assert (a["arch"], a["smoke"], a["b"], a["frames"], a["tokens"], a["decode_steps"]) == (
         "whisper-tiny", False, 16, 1500, 448, 64)
+
+
+DRYRUN_TINY = dict(
+    cells=[["qwen2.5-3b", "decode_32k"]], skips=["yi-34b"],
+    t1=dict(arch="qwen2.5-3b", smoke=True, b=2, s=16, params=None,
+            cfg_extra=dict(param_dtype="float32", compute_dtype="float32", head_pad=0,
+                           vocab_pad_to=1)),
+    forest_argv=["--n", "4000", "--dim", "8", "--batch", "16"],
+    examples=dict(knnlm_argv=["--steps", "1", "--store-batches", "1"], train_steps=4))
+
+
+def test_dryrun_and_examples_rehearse_on_the_cpu():
+    """``run_dryrun`` at its smallest size: the dry-run worker's cells (one
+    full-size cell on the 16 x 16 mesh, a long_500k skip, T1's cell on the
+    smoke model) in their own process, the forest dry run in another, the
+    four examples, then T1's cell held against one real step of the same
+    program on the CPU (equal counts)."""
+    call = (f"(__import__('torch').set_num_threads(1), "
+            f"run_dryrun({DRYRUN_TINY!r}, 'cpu', 100.0))[1]")
+    phases, (dry, ex), forest, examples, cells, card, launches = _rehearse(
+        call, keep=("forest_dryrun", "examples", "dryrun", "dryrun_vs_card",
+                    "dryrun_path_launches"))
+    assert phases[-4:] == ["examples", "dryrun", "dryrun_vs_card", "dryrun_path_launches"]
+    assert phases[0] == "forest_dryrun" and forest["bitwise_vs_plain"]
+    assert len(forest["heights"]) == 16 and forest["launches"]["per_step"] == 0
+    assert set(examples["seconds"]) == {"quickstart", "distributed_index", "knnlm_serve",
+                                        "train_lm"}
+    assert examples["train_lm"]["bitwise"] and examples["knnlm_serve"]["evicted"] == 252
+    c = cells["cells"]["qwen2.5-3b/decode_32k"]
+    assert c["bottleneck"] in ("compute", "memory", "collective") and c["of_gb"] == 80
+    assert cells["skipped"] == 1 and "sub-quadratic" in cells["skip_reason"]
+    assert all(card["counts_equal"].values()) and card["flops"] > 0
+    assert card["kernels"]["flash_attention_fwd"]["calls"] == 4
+    assert card["t1_share_of_model_flops"] > 0
+    assert set(dry["counts"]) == set(ex["counts"]) == {
+        "frontier", "frontier_pruned", "frontier_wide", "frontier_wide_pruned", "distance",
+        "flash"}
+    assert dry["per_pass"]["train_step"] == 4 and launches["seconds"] > 0
+
+
+def test_dryrun_and_examples_counts_join_the_rows():
+    """The dry-run path's and the examples' counts under their own
+    ``launches_by_path`` keys; the flash row gains the dry run's launches a
+    train step."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = [dict(name=n, launches=c, launches_per_pass={"p": c}) for n, c in
+            (("frontier_scores", 17), ("pairwise_distance", 3), ("flash_attention_fwd", 468))]
+    zero = dict(frontier=0, frontier_pruned=0, frontier_wide=0, frontier_wide_pruned=0)
+    n, d, f = chip_smoke.with_families(rows, {
+        "dryrun": dict(counts=dict(zero, frontier=40, distance=0, flash=72),
+                       per_pass=dict(train_step=72, forest_step=4.0)),
+        "examples": dict(counts=dict(zero, frontier=9, distance=2, flash=130), per_pass={})})
+    assert n["launches_by_path"] == {"lm": 17, "dryrun": 40, "examples": 9}
+    assert d["launches_by_path"] == {"lm": 3, "dryrun": 0, "examples": 2}
+    assert f["launches_by_path"] == {"lm": 468, "dryrun": 72, "examples": 130}
+    assert f["launches_per_pass"] == {"p": 468, "dryrun:step": 72}
+
+
+def test_dryrun_path_pins_its_size():
+    """T1's cell is T1's model, dtype and batch; one cell per family; the
+    eight full-attention archs' long_500k skips; the forest's reference
+    cell."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.configs import get_config, list_archs
+    cfg, t = chip_smoke.DRYRUN_FULL, chip_smoke.TRAIN_FULL["full"]
+    t1 = cfg["t1"]
+    assert (t1["arch"], t1["smoke"], t1["b"], t1["s"], t1["params"]) == (
+        t["arch"], t["smoke"], t["b"], t["s"], t["params"])
+    assert t1["cfg_extra"]["param_dtype"] == t1["cfg_extra"]["compute_dtype"] == "float32"
+    fams = {get_config(a).family for a, _ in cfg["cells"]}
+    assert fams == {get_config(a).family for a in list_archs()}
+    assert sorted(cfg["skips"]) == sorted(a for a in list_archs()
+                                          if not get_config(a).subquadratic)
+    assert cfg["forest_argv"] == []
