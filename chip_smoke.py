@@ -88,19 +88,29 @@ The kNN-LM serving slice (``run_lm``), qwen2.5-3b at full width in f32:
 
   7. kernel_frontier_wide: the frontier scorer's wide-row variant bitwise
      against the plain version at b=64, F=128, cap=32, dim 2048/896/1023/
-     4096, d_inf/l2/l1, filter off and on, timed at the served key widths
-     2048 (the rows' ms and bound) and 4096 (jamba's; the rows' ``by_dim``);
+     4096/3072/6144/7168, d_inf/l2/l1, filter off and on, timed at the
+     served key widths 2048 (the rows' ms and bound) and 4096 (jamba's and
+     codeqwen's), 3072 (starcoder2's) and 7168 (yi's; the rows'
+     ``by_dim``);
   8. kernel_flash: the flash kernel against ``flash_attention_torch`` at
      the prefill shape [4, 16, 2048, 128] causal (f32 within 2e-4, bf16
-     within 1e-2), at GQA g=8 with sq != sk, causal and not, and at
+     within 1e-2 and under 1% of its outputs rounded apart from the plain
+     version's, under 0.1% by more than one bf16 ulp), at GQA g=8 with sq != sk, causal and not, and at
      whisper-tiny's three shapes (phase L4's b=16, 6 heads of 64: the
      encoder's [1500 x 1500] non-causal, the decoder's [448 x 448] causal,
      the cross-attention's [448 x 1500] non-causal; the flash row's
-     ``by_shape``); times of the kernel, the plain version and SDPA (the
-     library call, where sq == sk or the mask is off),
-     and the bound at the arithmetic the kernel uses (three TF32 tensor-core
-     products per f32 product, one bf16 product in bf16), beside the f32
-     CUDA-core bound (``f32_cuda_core_bound_ms``);
+     ``by_shape``), and at one attention layer of each prefill of
+     ``run_lm_archs`` (``prefill_*``: starcoder2 [4, 24 over 2, 2048, 128],
+     codeqwen [4, 32, 2048, 128], internvl2 [4, 14 over 2, 2304, 64] in
+     f32, yi [4, 56 over 8, 2048, 128] and grok [4, 48 over 8, 2048, 128]
+     in bf16; ``by_shape`` too); times of the kernel, the plain version
+     and SDPA (the library call, where sq == sk or the mask is off;
+     ``enable_gqa`` where hk < h), and the bound (f32: three TF32
+     tensor-core products per f32 product, 3xTF32; bf16: the function's
+     operations at the bf16 rate), beside the f32 CUDA-core bound
+     (``f32_cuda_core_bound_ms``) and, in bf16, the bound at the products
+     the kernel issues, P V twice with P in two bf16 parts
+     (``two_part_bound_ms``);
   9. kernel_distance_prune: the distance kernel's prune epilogue against
      its plain version at nq=1024, ne=65,536, d=20, with its device time;
   then the slice's main path, launch counters zeroed just before:
@@ -216,9 +226,10 @@ each phase's weights let go before the next one's are drawn:
       dropless like it (capacity factor E / k), then ``launch/serve --arch
       jamba-v0.1-52b --knn`` (keys of width 4096) with the same retrieval
       check;
-  L3. lm_xlstm: xlstm-1.3b at full width and depth (48 layers, 42 mLSTM
-      and 6 sLSTM, exactly 3,609,147,728 parameters): the same prefill
-      checks (0 flash launches: no attention layer; the time by
+  L3. lm_xlstm: xlstm-1.3b at full width cut to one 8-layer period (7
+      mLSTM and 1 sLSTM, exactly 773,230,648 parameters; M3 serves all 48
+      layers, and the whole run is kept inside its time limit): the same
+      prefill checks (0 flash launches: no attention layer; the time by
       ``block.mlstm`` / ``block.slstm`` range), decode over a 64-token
       prompt at b=4 against the forward (chunk-parallel against
       recurrent), then ``launch/serve --arch xlstm-1.3b --knn`` (keys of
@@ -232,6 +243,43 @@ each phase's weights let go before the next one's are drawn:
       forward's logits, then ``launch/serve --arch whisper-tiny --knn``
       (no encoder runs there, as in the reference; keys of width 384) with
       the same retrieval check.
+
+The archs no other phase runs (``run_lm_archs``), each through
+``lm_family`` as L1 runs, its weights let go before the next one's, each
+counted apart under ``launches_by_path.lm_starcoder2`` / ``lm_codeqwen`` /
+``lm_vlm`` / ``lm_yi`` / ``lm_grok``: a prefill at b=4 x 2048 through
+``make_prefill_step`` (one flash launch a layer) held against the same
+prefill through the plain attention, where its device time goes, then
+``launch/serve --arch A --knn`` (a 2048-key store of width d_model, its
+b=4 retrieval bitwise to the plain-scorer descent):
+
+  L5. lm_starcoder2: starcoder2-3b in f32 (30 layers, 3,180,813,312
+      parameters; LayerNorm, the 2-matrix GELU MLP, QKV bias; GQA 24 over
+      2), keys of width 3072;
+  L6. lm_codeqwen: codeqwen1.5-7b in f32 (32 layers, 8,190,038,016; MHA
+      at 32 heads), keys of width 4096;
+  L7. lm_vlm: internvl2-1b in f32 (24 layers, 629,636,224): the vision
+      stub's 256 image embeddings [4, 256, 896] (``model_batch``'s) ahead
+      of the 2,048 tokens, 2,304 positions, d_head 64, GQA 14 over 2;
+      keys of width 896;
+  L8. lm_yi: yi-34b in bf16, param and compute dtype (60 layers,
+      34,388,917,248, 68.8 GB; GQA 56 over 8), keys of width 7168;
+  L9. lm_grok: grok-1-314b in bf16 cut to 4 of its 64 layers
+      (21,290,539,008; all 64 hold 633 GB in bf16): MoE with 8 experts,
+      top-2, d_ff 32,768, the routing held as L1 holds it; keys of width
+      6144.
+  In bf16 the logits are held within two bf16 ulps of the largest |plain
+  logit|, the routings that differ within 1e-3 as in L1, and the argmax
+  at every compared position where the plain top-1 leads by more than
+  twice that bound.  On an H100 80GB HBM3 (700 W) two of those bounds
+  are missed at these sizes, and each phase names its miss
+  (``known_misses``): yi-34b's logits (0.121 against 0.0625) and
+  grok-1-314b's routings (4.2e-3 against 1e-3).  A named miss is printed
+  in the phase's ``misses`` and does not stop the run; its bound stays as
+  it is, and any other miss fails the run.  Beside them the phase prints
+  how far the plain run moves from itself when only its attention's f32
+  summation order changes (``reordered_plain``: yi 0.109, grok 3.0e-3 of
+  its routings).
 
 The training path (``run_train``), after the families' weights are gone,
 counted under ``launches_by_path.train``; the launches of its checks are
@@ -317,9 +365,10 @@ the frontier scorer's wide rows in two rows of their own: launches on its
 slice's main path and per pass of that path, ms, plain ms, bound ms,
 library ms; ``launches_by_path`` gives every path's count apart: ``index``
 and ``forest`` for the narrow rows and the scan, ``lm``, ``lm_moe``,
-``lm_hybrid``, ``lm_xlstm`` and ``lm_audio`` for the LM rows, and
-``stream``, ``serve``, ``train``, ``mesh``, ``dryrun`` and ``examples``
-for all; the
+``lm_hybrid``, ``lm_xlstm``, ``lm_audio``, ``lm_starcoder2``,
+``lm_codeqwen``, ``lm_vlm``, ``lm_yi`` and ``lm_grok`` for the LM rows,
+and ``stream``, ``serve``, ``train``, ``mesh``, ``dryrun`` and
+``examples`` for all; the
 distance scan at the index path's shape, with
 its device ms and its synthetic-shape row),
 nvidia-smi's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -333,6 +382,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -361,9 +411,11 @@ LM_FULL = dict(
     # model families' pass included, under ~560 s
     ds_seqs=32, ds_len=2048, ds_chunk=4, ds_evict=1024, ds_evict_before=64, ret_bs=(4, 64),
     # wide_dims: every one held bitwise; wide_timed: the served key widths
-    # (qwen2.5-3b's and qwen2-moe's 2048, jamba's 4096), timed and bounded
-    wide_b=64, wide_F=128, wide_cap=32, wide_N=4096, wide_dims=(2048, 896, 1023, 4096),
-    wide_timed=(2048, 4096),
+    # (qwen2.5-3b's and qwen2-moe's 2048, starcoder2's 3072, jamba's and
+    # codeqwen's 4096, yi's 7168), timed and bounded; 6144 is grok's
+    wide_b=64, wide_F=128, wide_cap=32, wide_N=4096,
+    wide_dims=(2048, 896, 1023, 4096, 3072, 6144, 7168),
+    wide_timed=(2048, 4096, 3072, 7168),
     flash_cases={                         # b, h, hk, sq, sk, d, causal, dtype
         "path_f32": (4, 16, 16, 2048, 2048, 128, True, "float32"),
         "path_bf16": (4, 16, 16, 2048, 2048, 128, True, "bfloat16"),
@@ -375,12 +427,21 @@ LM_FULL = dict(
         # 448 positions, and the cross-attention onto the frames
         "whisper_encoder": (16, 6, 6, 1500, 1500, 64, False, "float32"),
         "whisper_decoder": (16, 6, 6, 448, 448, 64, True, "float32"),
-        "whisper_cross": (16, 6, 6, 448, 1500, 64, False, "float32")},
+        "whisper_cross": (16, 6, 6, 448, 1500, 64, False, "float32"),
+        # the prefills of run_lm_archs, one layer's attention each:
+        # starcoder2-3b (group 12), codeqwen1.5-7b (MHA at 32 heads),
+        # internvl2-1b (d_head 64, group 7, 256 image + 2048 text
+        # positions), yi-34b (group 7) and grok-1-314b (group 6) in bf16
+        "prefill_starcoder2": (4, 24, 2, 2048, 2048, 128, True, "float32"),
+        "prefill_codeqwen": (4, 32, 32, 2048, 2048, 128, True, "float32"),
+        "prefill_vlm": (4, 14, 2, 2304, 2304, 64, True, "float32"),
+        "prefill_yi_bf16": (4, 56, 8, 2048, 2048, 128, True, "bfloat16"),
+        "prefill_grok_bf16": (4, 48, 8, 2048, 2048, 128, True, "bfloat16")},
     prune_nq=1024, prune_ne=65_536, prune_d=20, timing_reps=5)
 # the block families (run_lm_families), f32, seeded random weights:
 # qwen2-moe-a2.7b at full width and depth, jamba-v0.1-52b at full width cut
 # to one 8-layer period (all 32 layers are 206 GB in f32), xlstm-1.3b at
-# full width and depth, whisper-tiny at full size with 1,500 frames (the
+# full width cut to one 8-layer period, whisper-tiny at full size with 1,500 frames (the
 # conv stub's output for a 30-s window) and 448 decoder positions;
 # ``params`` pins each model's exact parameter count (the reference's
 # ``exact_param_count``, held by tests/test_torch_models.py,
@@ -391,12 +452,44 @@ LM_FAMILIES_FULL = dict(
     hybrid=dict(arch="jamba-v0.1-52b", smoke=False, overrides={"n_layers": 8},
                 params=13_295_235_072, prefill_b=4, prefill_s=2048, decode_b=4,
                 decode_len=64, serve_argv=["--arch", "jamba-v0.1-52b", "--knn"]),
-    xlstm=dict(arch="xlstm-1.3b", smoke=False, overrides={}, params=3_609_147_728,
+    # xlstm-1.3b's 48 layers took 72-78 s of a whole run that reached
+    # 1,042 s of its 1,200 on one H100 80GB HBM3 (700 W) once run_lm_archs
+    # joined: one period here, all 48 served in M3
+    xlstm=dict(arch="xlstm-1.3b", smoke=False, overrides={"n_layers": 8}, params=773_230_648,
                prefill_b=4, prefill_s=2048, decode_b=4, decode_len=64,
-               serve_argv=["--arch", "xlstm-1.3b", "--knn"]),
+               serve_argv=["--arch", "xlstm-1.3b", "--knn"],
+               cut_for="the run's time limit (M3 serves all 48)"),
     audio=dict(arch="whisper-tiny", smoke=False, overrides={}, params=36_620_160,
                prefill_b=16, frames=1500, prefill_s=448, decode_len=64,
                serve_argv=["--arch", "whisper-tiny", "--knn"]),
+    max_flip_share=1e-3, timing_reps=2)
+# the archs that no other phase runs (run_lm_archs), seeded random weights,
+# each through lm_family: starcoder2-3b, codeqwen1.5-7b and internvl2-1b
+# (its vision stub's 256 image embeddings ahead of the 2,048 tokens) at
+# full width and depth in f32; yi-34b at full width and depth in bf16
+# (68.8 GB) and grok-1-314b in bf16 cut to 4 of its 64 layers (all 64 hold
+# 633 GB in bf16), both with param and compute dtype bf16 and no head or
+# vocab padding; ``params`` pins each model's exact parameter count
+BF16 = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}
+LM_ARCHS_FULL = dict(
+    starcoder2=dict(arch="starcoder2-3b", smoke=False, overrides={}, params=3_180_813_312,
+                    prefill_b=4, prefill_s=2048,
+                    serve_argv=["--arch", "starcoder2-3b", "--knn"]),
+    codeqwen=dict(arch="codeqwen1.5-7b", smoke=False, overrides={}, params=8_190_038_016,
+                  prefill_b=4, prefill_s=2048,
+                  serve_argv=["--arch", "codeqwen1.5-7b", "--knn"]),
+    vlm=dict(arch="internvl2-1b", smoke=False, overrides={}, params=629_636_224,
+             prefill_b=4, prefill_s=2048, serve_argv=["--arch", "internvl2-1b", "--knn"]),
+    # known_misses: the bf16 bounds each misses on an H100 80GB HBM3 (700
+    # W), reported and left open rather than widened: yi's 60 layers move
+    # its logits 3.5 bf16 ulps under a mere reordering of the plain
+    # attention's sums, and any reordering flips 2-3e-3 of grok's routings
+    yi=dict(arch="yi-34b", smoke=False, overrides=BF16, params=34_388_917_248,
+            prefill_b=4, prefill_s=2048, serve_argv=["--arch", "yi-34b", "--knn"],
+            known_misses=("logits",)),
+    grok=dict(arch="grok-1-314b", smoke=False, overrides=dict(BF16, n_layers=4),
+              params=21_290_539_008, prefill_b=4, prefill_s=2048,
+              serve_argv=["--arch", "grok-1-314b", "--knn"], known_misses=("routing",)),
     max_flip_share=1e-3, timing_reps=2)
 # the training path (run_train): T1 qwen2.5-3b at full width and depth in
 # f32 (params, grads and both moments ~49.4 GB; b=2 x 2048 tokens, remat
@@ -503,6 +596,14 @@ def flash_bound(nbytes: float, nops: float, dtype: str) -> tuple[float, str]:
     if dtype == "float32":
         return RA.bound(nbytes, 3 * nops, RA.H100_TF32_FLOP_PER_S)
     return RA.bound(nbytes, nops, RA.H100_BF16_FLOP_PER_S)
+
+
+def flash_two_part_bound_ms(nbytes: float, nops: float) -> float:
+    """bf16: the bound at the products the kernel issues, Q K^T once and
+    P V twice (P in two bf16 parts), 1.5x the function's operations; shown
+    beside ``flash_bound``'s, which stays at the function's."""
+    from repro_torch.roofline import analysis as RA
+    return RA.bound(nbytes, 1.5 * nops, RA.H100_BF16_FLOP_PER_S)[0]
 
 
 def ptxas_summary(log: str) -> dict:
@@ -1626,39 +1727,18 @@ def stream_planes(trees, ops, xs, oids, owner, device, wall):
     return st, report, sf.stacked()
 
 
-def run_lm(cfg: dict, device: str):
-    """The kNN-LM serving slice: its kernels against their plain versions
-    (outside the launch counts), then its main path with the counts zeroed
-    just before and read just after, then the replayed frontiers.  Returns
-    (what the stream phases S1 and S3 need: the weights, a copy of the
-    datastore taken before its eviction, ...; the slice's rows of the
-    ``kernels`` line)."""
-    import numpy as np
+def kernel_frontier_wide(cfg: dict, device: str, gen) -> dict:
+    """Phase 7: the frontier scorer's wide rows bitwise against the plain
+    version at every ``wide_dims`` width, d_inf/l2/l1, filter off and on;
+    the ``wide_timed`` widths timed beside their bound.  Returns the rows
+    by ``dim/metric/mode``."""
     import torch
-    import torch.nn.functional as Fnn
 
-    from repro_torch.configs import get_config, smoke_config
-    from repro_torch.core import smtree
-    from repro_torch.core.engine import SMTreeEngine
-    from repro_torch.data.pipeline import DataConfig, synth_batch
-    from repro_torch.kernels.distance import (pairwise_distance_prune,
-                                              pairwise_distance_prune_torch)
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_torch)
-    from repro_torch.kernels.frontier import (frontier_scores,
-                                              frontier_scores_torch)
-    from repro_torch.launch import serve
-    from repro_torch.models import model as M
-    from repro_torch.models.transformer import hidden_states
-    from repro_torch.roofline.counts import distance_work, flash_work
-    from repro_torch.serve.knnlm import KnnLmConfig, KnnLmDatastore
-    from repro_torch.serve.serve_step import make_prefill_step
+    from repro_torch.kernels.frontier import frontier_scores, frontier_scores_torch
 
     on_card = device == "cuda"
     dev = torch.device(device)
-    sync, time_ms, wall = timers(on_card)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    reps = cfg["timing_reps"]
+    sync, time_ms, _ = timers(on_card)
 
     def free():
         if on_card:
@@ -1714,6 +1794,28 @@ def run_lm(cfg: dict, device: str):
                                              timed=list(cfg["wide_timed"])),
          bitwise=True, results=wide_rows)
 
+    return wide_rows
+
+
+def kernel_flash(cfg: dict, device: str, gen) -> dict:
+    """Phase 8: the flash kernel against ``flash_attention_torch`` at every
+    ``flash_cases`` shape; the main paths' shapes (``path_*``,
+    ``whisper_*``, ``prefill_*``) timed beside their bound and SDPA's time
+    (with ``enable_gqa`` where hk < h).  Returns the rows by case."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_torch
+    from repro_torch.roofline.counts import flash_work
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    sync, time_ms, _ = timers(on_card)
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 8
     flash_rows = {}
     for name, (fb, h, hk, sq, sk, d, causal, dt) in cfg["flash_cases"].items():
@@ -1731,7 +1833,21 @@ def run_lm(cfg: dict, device: str):
               f"flash {name}: beyond {tol} (max abs err {err})")
         row = dict(shape=[fb, h, hk, sq, sk, d], causal=causal, dtype=dt,
                    max_abs_err=err, tol=tol)
-        if name.startswith(("path", "whisper")):
+        if dt == "bfloat16":
+            # the kernel keeps P in two bf16 parts, as the reference keeps
+            # p in f32: its outputs round to the plain version's (f32
+            # inside, one rounding) in all but a few elements.  With P
+            # rounded to bf16 once, 39% of them differed, 12% by more than
+            # one bf16 ulp
+            ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
+            row.update(differ_share=float((diff > 0).float().mean()),
+                       over_1ulp_share=float((diff > ulp).float().mean()))
+            check(row["differ_share"] < 1e-2 and row["over_1ulp_share"] < 1e-3,
+                  f"flash {name}: {row['differ_share']:.2%} of the outputs round apart "
+                  f"from the plain version's (bound 1%), {row['over_1ulp_share']:.3%} by "
+                  f"more than one bf16 ulp (bound 0.1%)")
+            del ulp
+        if name.startswith(("path", "whisper", "prefill")):
             # 4 d operations per visible (query, key) pair, bottom-right causal
             nops, nbytes = flash_work(fb, h, hk, sq, sk, d, causal, q.element_size())
             bms, by = flash_bound(nbytes, nops, dt)
@@ -1742,9 +1858,11 @@ def run_lm(cfg: dict, device: str):
                        # SDPA's causal mask is top-left: the same function
                        # only where sq == sk or there is no mask
                        library_ms=(time_ms(lambda: Fnn.scaled_dot_product_attention(
-                           q, k, v, is_causal=causal), iters=10)
+                           q, k, v, is_causal=causal, enable_gqa=hk != h), iters=10)
                            if on_card and (sq == sk or not causal) else None),
                        bound_ms=bms, bound_by=by,
+                       two_part_bound_ms=(flash_two_part_bound_ms(nbytes, nops)
+                                          if dt == "bfloat16" else None),
                        f32_cuda_core_bound_ms=bound(nbytes, nops)[0],
                        flops=nops, bytes=nbytes)
         flash_rows[name] = row
@@ -1753,6 +1871,50 @@ def run_lm(cfg: dict, device: str):
     emit("kernel_flash", results=flash_rows,
          library="torch.nn.functional.scaled_dot_product_attention (sq == sk or "
                  "non-causal)")
+
+    return flash_rows
+
+
+def run_lm(cfg: dict, device: str):
+    """The kNN-LM serving slice: its kernels against their plain versions
+    (outside the launch counts), then its main path with the counts zeroed
+    just before and read just after, then the replayed frontiers.  Returns
+    (what the stream phases S1 and S3 need: the weights, a copy of the
+    datastore taken before its eviction, ...; the slice's rows of the
+    ``kernels`` line)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import smtree
+    from repro_torch.core.engine import SMTreeEngine
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels.distance import (pairwise_distance_prune,
+                                              pairwise_distance_prune_torch)
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_torch)
+    from repro_torch.kernels.frontier import (frontier_scores,
+                                              frontier_scores_torch)
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import hidden_states
+    from repro_torch.roofline.counts import distance_work
+    from repro_torch.serve.knnlm import KnnLmConfig, KnnLmDatastore
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    sync, time_ms, wall = timers(on_card)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    reps = cfg["timing_reps"]
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7-8
+    wide_rows = kernel_frontier_wide(cfg, device, gen)
+    flash_rows = kernel_flash(cfg, device, gen)
 
     # ---------------------------------------------------------------- 9
     nq, ne, d = cfg["prune_nq"], cfg["prune_ne"], cfg["prune_d"]
@@ -2078,8 +2240,10 @@ def run_lm(cfg: dict, device: str):
              f32_cuda_core_bound_ms=fl["f32_cuda_core_bound_ms"],
              by_shape={name: {k: row[k] for k in ("shape", "causal", "max_abs_err", "ms",
                                                   "plain_ms", "library_ms", "bound_ms",
-                                                  "bound_by", "f32_cuda_core_bound_ms")}
-                       for name, row in flash_rows.items() if name.startswith("whisper")}),
+                                                  "bound_by", "two_part_bound_ms",
+                                                  "f32_cuda_core_bound_ms")}
+                       for name, row in flash_rows.items()
+                       if name.startswith(("whisper", "prefill"))}),
     ]
 
 
@@ -3127,25 +3291,86 @@ def routing_agreement(r1: list, r2: list, shape) -> tuple:
     return differ / total, agree.reshape(shape)
 
 
-def logits_against_plain(kernel_host, plain, agree) -> dict:
+def logits_against_plain(kernel_host, plain, agree, lead_over: float = 0.0) -> dict:
     """The kernel run's logits (kept on the host: one [b, s, V] tensor on
     the card at a time) against the plain run's, batch row by batch row,
-    over the tokens whose routing agreed ([b, s]): max |err|, max |plain
-    logit|, and whether the last position's argmax is the same in every
-    row whose last token agreed."""
-    err, top, argmax_eq, rows = 0.0, 0.0, True, 0
+    in f32, over the tokens whose routing agreed ([b, s]): max |err|, max
+    |plain logit|, and whether the last position's argmax is the same in
+    every row whose last token agreed.  With ``lead_over`` > 0 (bf16) the
+    argmax is held only where the plain run's top-1 leads its top-2 by
+    more than that: at the last position of each row (the other rows
+    reported in ``argmax_rows_near_tie``: row, lead, argmax equal or not)
+    and at every compared position (``argmax_positions``, and whether all
+    agree, ``argmax_positions_equal``)."""
+    err, top, argmax_eq, rows, near = 0.0, 0.0, True, 0, []
+    positions, positions_eq = 0, True
     for i in range(plain.shape[0]):
-        k_i = kernel_host[i].to(plain.device)
-        top = max(top, float(plain[i].abs().max()))
+        k_i = kernel_host[i].to(plain.device).float()
+        p_i = plain[i].float()
+        top = max(top, float(p_i.abs().max()))
         ok = agree[i].to(plain.device)
         if bool(ok.any()):
-            err = max(err, float((k_i - plain[i]).abs()[ok].max()))
+            err = max(err, float((k_i - p_i).abs()[ok].max()))
+        if lead_over:
+            t = p_i.topk(2, dim=-1).values
+            led = ok & (t[:, 0] - t[:, 1] > lead_over)
+            positions += int(led.sum())
+            positions_eq &= bool((k_i.argmax(-1) == p_i.argmax(-1))[led].all())
+            del t, led
         if bool(ok[-1]):
-            rows += 1
-            argmax_eq &= bool(k_i[-1].argmax() == plain[i][-1].argmax())
-        del k_i
-    return dict(max_abs_logit_err=err, max_abs_logit=top, last_argmax_equal=argmax_eq,
-                last_argmax_rows=rows, tokens_compared=int(agree.sum()))
+            same = bool(k_i[-1].argmax() == p_i[-1].argmax())
+            t1, t2 = p_i[-1].topk(2).values.tolist()
+            if lead_over and t1 - t2 <= lead_over:
+                near.append(dict(row=i, lead=t1 - t2, argmax_equal=same))
+            else:
+                rows += 1
+                argmax_eq &= same
+        del k_i, p_i
+    out = dict(max_abs_logit_err=err, max_abs_logit=top, last_argmax_equal=argmax_eq,
+               last_argmax_rows=rows, argmax_rows_near_tie=near,
+               tokens_compared=int(agree.sum()))
+    if lead_over:
+        out.update(argmax_positions=positions, argmax_positions_equal=positions_eq)
+    return out
+
+
+def logit_bound(top: float, dtype: str) -> tuple[float, str]:
+    """(the kernel-against-plain bound on a prefill's logits, its rule):
+    1e-3 x max |plain logit| in f32; in bf16 two bf16 ulps of it (one ulp
+    is 2^(e - 7) for |logit| in [2^e, 2^(e + 1)); the bound
+    tests/test_torch_models.py holds the port's bf16 logits to against the
+    JAX package)."""
+    if dtype == "bfloat16":
+        return 2 * 2.0 ** (math.floor(math.log2(top)) - 7), "2 bf16 ulps of max|logit|"
+    return 1e-3 * top, "1e-3 x max|logit|"
+
+
+def reordered_plain(mcfg, params, batch, plain, rp: list, shape) -> dict:
+    """How far a bf16 model's prefill moves when only the plain attention's
+    f32 summation order changes (keys in chunks of 256, not 512): the
+    reordered run against ``plain`` (routing ``rp``), its max |logit| error
+    on the tokens whose routing agreed and its share of routings that
+    differ.  bf16 rounds every layer's output, so a last-bit difference in
+    any attention output is carried through every later layer: at yi-34b's
+    60 layers the plain version is 3.5 bf16 ulps of its largest logit from
+    itself reordered, above the 2 ulps that hold at a few layers.  Printed
+    beside the kernel run's distance; no bound is drawn from it.  Outside
+    the counts."""
+    import functools
+
+    from repro_torch.kernels.attention_plain import chunked_attention
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    rf = []
+    with uncounted():
+        again = make_prefill_step(mcfg, _attention=functools.partial(
+            chunked_attention, chunk=256), _routing=rf)(params, batch)
+    host = again.cpu()
+    del again
+    flip, agree = routing_agreement(rf, rp, shape)
+    cmp = logits_against_plain(host, plain, agree)
+    return dict(chunk=256, max_abs_logit_err=cmp["max_abs_logit_err"],
+                routing_differs_share=flip, tokens_compared=cmp["tokens_compared"])
 
 
 def serve_family(phase: str, fcfg: dict, mcfg, params, device: str) -> tuple:
@@ -3209,18 +3434,23 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
     through ``make_prefill_step`` (the flash kernel once per attention
     layer, none for xLSTM), held against the same prefill through the
     plain attention on the tokens whose routing agreed in every MoE layer
-    (the share of routings that differ reported and bounded), where its
-    device time goes, with ``decode_len`` a decode held against a forward
-    made dropless like it, then ``launch/serve`` with ``--knn`` on these
-    weights.  Returns the path's counts by kernel row and its launches per
-    pass."""
+    (the share of routings that differ within ``max_flip_share``; f32
+    within 1e-3 x max|logit|; bf16 within two bf16 ulps of it, with the
+    plain run's own distance under another summation order beside,
+    ``reordered_plain``; a bound the phase names in ``known_misses`` is
+    reported in ``misses`` when missed, any other miss fails), where its
+    device time goes, with ``decode_len``
+    a decode held against a forward made dropless like it, then
+    ``launch/serve`` with ``--knn`` on these weights.  The vision stub's
+    image embeddings (``model_batch``'s) go ahead of the tokens.  Returns
+    the path's counts by kernel row and its launches per pass."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.data.pipeline import DataConfig, model_batch
     from repro_torch.kernels.flash_attention import flash_attention_torch
     from repro_torch.models import model as M
     from repro_torch.serve.serve_step import make_prefill_step
@@ -3233,9 +3463,14 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
     mcfg = dataclasses.replace(base, **fcfg["overrides"])
     n_attn = sum(k.startswith("attn") for k in mcfg.block_pattern) * mcfg.n_periods
     n_moe = sum(k.endswith("_moe") for k in mcfg.block_pattern) * mcfg.n_periods
-    reduced = ([f"depth: {mcfg.n_layers} of {base.n_layers} layers (one period of "
-                f"{len(base.block_pattern)}): all {base.n_layers} hold over "
-                f"{base.param_count * 4 / 1e9:.0f} GB in f32, more than the card's 80 GB"]
+    dtype = mcfg.param_dtype
+    period = (f" (one period of {len(base.block_pattern)})"
+              if mcfg.n_layers == len(base.block_pattern) > 1 else "")
+    why = fcfg.get("cut_for") or (
+        f"all {base.n_layers} hold over "
+        f"{base.param_count * getattr(torch, dtype).itemsize / 1e9:.0f} GB in "
+        f"{'f32' if dtype == 'float32' else 'bf16'}, more than the card's 80 GB")
+    reduced = ([f"depth: {mcfg.n_layers} of {base.n_layers} layers{period}: {why}"]
                if mcfg.n_layers < base.n_layers else [])
 
     zero_counts()
@@ -3249,10 +3484,15 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
         torch.cuda.reset_peak_memory_stats()
 
     B, S, V = fcfg["prefill_b"], fcfg["prefill_s"], mcfg.padded_vocab
-    tokens = torch.from_numpy(synth_batch(DataConfig(
-        vocab_size=mcfg.vocab_size, seq_len=S, global_batch=B), 0,
-        with_labels=False)["tokens"]).to(dev)
-    batch = {"tokens": tokens}
+    # the vision stub's image embeddings [b, n_img, D] (``model_batch``'s)
+    # ahead of the S tokens: S + n_img positions
+    n_img = mcfg.n_image_tokens if mcfg.frontend == "vision_stub" else 0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in model_batch(mcfg, DataConfig(
+        vocab_size=mcfg.vocab_size, seq_len=S + n_img, global_batch=B), 0).items()
+        if k != "labels"}
+    tokens = batch["tokens"]
+    check(tokens.shape == (B, S), f"{phase}: tokens {tuple(tokens.shape)}, not {(B, S)}")
+    P = S + n_img
     # the first prefill through ``forward`` (what ``make_prefill_step``
     # wraps), for its aux; the timed ones through ``make_prefill_step``
     rk = []
@@ -3264,7 +3504,7 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
         check(per_forward == n_attn,
               f"{phase}: {per_forward} flash launches in one forward, not {n_attn}")
     check(len(rk) == n_moe, f"{phase}: {len(rk)} routing records, not {n_moe}")
-    check(bool(torch.isfinite(logits).all()) and logits.shape == (B, S, V),
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (B, P, V),
           f"{phase}: prefill logits: shape or non-finite values")
     aux = {k: float(v) for k, v in aux.items()}
     kernel_host = logits.cpu()
@@ -3278,15 +3518,36 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
     with uncounted():
         plain, plain_s = wall(lambda: make_prefill_step(
             mcfg, _attention=flash_attention_torch, _routing=rp)(params, batch))
-    flip_share, agree = routing_agreement(rk, rp, (B, S))
-    check(flip_share <= max_flip_share,
-          f"{phase}: {flip_share:.2e} of the routings differ from the plain run's")
-    cmp = logits_against_plain(kernel_host, plain, agree)
+    flip_share, agree = routing_agreement(rk, rp, (B, P))
+    top = float(plain.abs().max())
+    tol, rule = logit_bound(top, mcfg.compute_dtype)
+    bf16 = mcfg.compute_dtype == "bfloat16"
+    misses = []
+
+    def hold(ok: bool, name: str, msg: str):
+        # a miss the phase names in ``known_misses`` is reported, its bound
+        # unchanged; any other fails the run
+        if not ok:
+            check(name in fcfg.get("known_misses", ()), msg)
+            misses.append(dict(check=name, detail=msg))
+
+    hold(flip_share <= max_flip_share, "routing",
+         f"{phase}: {flip_share:.2e} of the routings differ from the plain run's "
+         f"(bound {max_flip_share:.2e})")
+    # f32: within 1e-3 x max|logit|, the last argmax equal in every row;
+    # bf16: within 2 ulps, the argmax held where the plain top-1 leads by
+    # more than twice that
+    cmp = logits_against_plain(kernel_host, plain, agree, 2 * tol if bf16 else 0.0)
     check(cmp["tokens_compared"] > 0, f"{phase}: no token's routing agreed")
-    check(cmp["max_abs_logit_err"] <= 1e-3 * cmp["max_abs_logit"],
-          f"{phase}: prefill logits kernel vs plain {cmp['max_abs_logit_err']} > 1e-3 x "
-          f"{cmp['max_abs_logit']}")
+    hold(cmp["max_abs_logit_err"] <= tol, "logits",
+         f"{phase}: prefill logits kernel vs plain {cmp['max_abs_logit_err']} > {tol} "
+         f"({rule}, max|logit| {cmp['max_abs_logit']})")
     check(cmp["last_argmax_equal"], f"{phase}: last-position argmax differs from the plain path")
+    if bf16:
+        check(cmp["argmax_positions_equal"],
+              f"{phase}: the argmax differs from the plain path at a position where its "
+              f"top-1 leads by more than {2 * tol}")
+    floor = reordered_plain(mcfg, params, batch, plain, rp, (B, P)) if bf16 else None
     del plain, kernel_host, rk, rp
     free()
 
@@ -3301,10 +3562,14 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
                                                           mcfg.experts_per_token,
                                                           mcfg.n_shared_experts],
                heads=[mcfg.n_heads, mcfg.n_kv_heads], vocab=mcfg.vocab_size,
-               dtype=mcfg.param_dtype, params=n_params, cfg_param_count=mcfg.param_count,
+               dtype=mcfg.param_dtype, compute_dtype=mcfg.compute_dtype, params=n_params,
+               cfg_param_count=mcfg.param_count,
                reduced=reduced, resident_before_gb=resident_gb, init_seconds=init_s,
                weights_gb=weights_gb,
-               prefill=dict(b=B, s=S, ms=[prefill_s * 1e3] + [t * 1e3 for t in again],
+               prefill=dict(b=B, s=S, image_tokens=n_img, logit_bound=tol, bound_rule=rule,
+                            flip_bound=max_flip_share, misses=misses,
+                            reordered_plain=floor,
+                            ms=[prefill_s * 1e3] + [t * 1e3 for t in again],
                             plain_attention_ms=plain_s * 1e3, peak_gb=peak_gb,
                             flash_launches_per_forward=per_forward, moe_layers=n_moe,
                             aux=aux, routing_differs_share=flip_share, **cmp,
@@ -3356,7 +3621,9 @@ def lm_family(phase: str, fcfg: dict, device: str, max_flip_share: float,
         free()
 
     out["serve"], sc, steps = serve_family(phase, fcfg, mcfg, params, device)
-    del params, tokens
+    # the phase's peak from its weights on: prefills, profile, serving
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del params, tokens, batch
     free()
 
     c = stream_counts()
@@ -3525,6 +3792,26 @@ def run_lm_families(cfg: dict, device: str) -> dict:
         gc.collect()
     emit("lm_families_launches", **{k: dict(v["counts"], seconds=v["seconds"])
                                      for k, v in out.items()})
+    return out
+
+
+def run_lm_archs(cfg: dict, device: str) -> dict:
+    """The archs that no other phase runs, each through ``lm_family`` with
+    its launches apart: ``lm_starcoder2`` (starcoder2-3b), ``lm_codeqwen``
+    (codeqwen1.5-7b), ``lm_vlm`` (internvl2-1b and its vision stub) in
+    f32, ``lm_yi`` (yi-34b) and ``lm_grok`` (grok-1-314b, 4 layers) in
+    bf16; each phase's weights go before the next one's are drawn.
+    Returns {phase: its counts and launches per pass}."""
+    out = {}
+    for phase, key in (("lm_starcoder2", "starcoder2"), ("lm_codeqwen", "codeqwen"),
+                       ("lm_vlm", "vlm"), ("lm_yi", "yi"), ("lm_grok", "grok")):
+        t0 = time.perf_counter()
+        out[phase] = lm_family(phase, cfg[key], device, cfg["max_flip_share"],
+                               cfg["timing_reps"])
+        out[phase]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+    emit("lm_archs_launches", **{k: dict(v["counts"], seconds=v["seconds"])
+                                 for k, v in out.items()})
     return out
 
 
@@ -4723,6 +5010,9 @@ def main() -> int:
     fam = run_lm_families(LM_FAMILIES_FULL, "cuda")
     gc.collect()               # every family's weights are gone
     torch.cuda.empty_cache()
+    archs = run_lm_archs(LM_ARCHS_FULL, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
     train = run_train(TRAIN_FULL, "cuda")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4733,7 +5023,7 @@ def main() -> int:
     narrow, narrow_pruned, scan = with_forest(index_rows, forest)
     kernels = with_families(with_path(with_path(
         [narrow, narrow_pruned, wide, wide_pruned, scan, prune, flash], stream, "stream"),
-        serve, "serve"), {**fam, "train": train, "mesh": mesh, "dryrun": dry,
+        serve, "serve"), {**fam, **archs, "train": train, "mesh": mesh, "dryrun": dry,
                           "examples": examples})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -22,7 +22,10 @@
 // What bounds it on this card: operations.  At the LM's prefill shape
 // [4, 16, 2048, 128] causal a launch does 68.7 GFLOP (two products over
 // the visible half of the logits) against 67 MB (f32) of inputs and output.
-//   * bf16: one pass of bf16 wgmma, 68.7 GFLOP / 989 TFLOP/s = 0.069 ms.
+//   * bf16: 68.7 GFLOP / 989 TFLOP/s = 0.069 ms for the function.  The
+//     kernel takes Q K^T in one pass of bf16 wgmma and P V in two (P split
+//     in two bf16 parts, below), 1.5x the products: 0.104 ms at its own
+//     arithmetic.
 //   * f32: the port holds the kernel to 2e-4 of the plain f32 version, and
 //     one pass of TF32 (10-bit mantissas) misses that: emulated on the CPU
 //     at [1, 4, 2048, 128] causal with N(0, 1) inputs against an f64
@@ -49,9 +52,11 @@
 //      at the end; the mask is applied only on tiles that cross the
 //      diagonal or the end of the keys;
 //   3. O += P V with wgmma, P taken from registers as the A operand.  bf16:
-//      P rounded to bf16, V the B operand in its natural [keys][d] layout
-//      (MN-major).  f32: P split hi/lo in registers, three products; tf32
-//      wgmma takes only K-major B, so V is staged transposed (V^T,
+//      P split into hi = bf16(p) and lo = bf16(p - hi), two products (lo.V,
+//      then hi.V), V the B operand in its natural [keys][d] layout
+//      (MN-major): ~16 bits of p, as the reference's f32 p (pv()).  f32: P
+//      split hi/lo in registers, three products; tf32 wgmma takes only
+//      K-major B, so V is staged transposed (V^T,
 //      [d][keys]), each group of 8 keys permuted so that the accumulator
 //      fragment of S is the A fragment of P as it stands (no shuffles).
 // K and V tiles come in by cp.async into a ring of two stages: the next
@@ -432,26 +437,45 @@ __device__ __forceinline__ void pv(float (*o)[Cfg<T, D>::NV / 2], const float* p
         RS<true, NV>::mma(o[ch], hi[kk], desc(b, 128, SBO), 1);
       }
   } else {
-    // the bf16 A fragment is the accumulator fragment, two keys a register
+    // the bf16 A fragment is the accumulator fragment, two keys a register.
+    // P is taken in two bf16 parts, hi = bf16(p) and lo = bf16(p - hi)
+    // (p - hi is exact in f32): O takes lo.V, then hi.V, so P keeps ~16
+    // bits, as the reference's kernel keeps p in f32.  Rounded to bf16
+    // once, 39% of the outputs parted from the plain version's at the bf16
+    // prefill shapes on an H100 80GB HBM3 (700 W), 0.26% in two parts.
+    // The lo products are issued and waited for first, so the hi
+    // fragments reuse their registers.
     constexpr uint32_t SBO = BK * 16;
     uint32_t a[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+    for (int part = 0; part < 2; ++part) {  // 0: lo, 1: hi
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const __nv_bfloat162 x = __floats2bfloat162_rn(p[8 * kk + 2 * e],
-                                                       p[8 * kk + 2 * e + 1]);
-        a[kk][e] = *reinterpret_cast<const uint32_t*>(&x);
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x0 = p[8 * kk + 2 * e], x1 = p[8 * kk + 2 * e + 1];
+          __nv_bfloat162 x = __floats2bfloat162_rn(x0, x1);
+          if (part == 0) {
+            const float2 hi = __bfloat1622float2(x);
+            x = __floats2bfloat162_rn(x0 - hi.x, x1 - hi.y);
+          }
+          a[kk][e] = *reinterpret_cast<const uint32_t*>(&x);
+        }
+#pragma unroll
+      for (int ch = 0; ch < D / NV; ++ch) fence_regs<NV / 2>(o[ch]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int ch = 0; ch < D / NV; ++ch)
+          RS<false, NV>::mma(o[ch], a[kk],
+                             desc(sv + 256 * kk + ch * (NV / 8) * SBO, 128, SBO), 1);
+      if (part == 0) {
+        wg_commit_wait();
+#pragma unroll
+        for (int ch = 0; ch < D / NV; ++ch) fence_regs<NV / 2>(o[ch]);
       }
-#pragma unroll
-    for (int ch = 0; ch < D / NV; ++ch) fence_regs<NV / 2>(o[ch]);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int ch = 0; ch < D / NV; ++ch)
-        RS<false, NV>::mma(o[ch], a[kk],
-                           desc(sv + 256 * kk + ch * (NV / 8) * SBO, 128, SBO), 1);
+    }
   }
   wg_commit_wait();
 #pragma unroll

@@ -9,9 +9,10 @@ masked logits are -1e30 and a row with no visible key writes zeros.
   * ``flash_attention_torch`` — the plain PyTorch version: the online-
     softmax math of ``attention_plain.chunked_attention``;
   * the CUDA kernel ``csrc/flash_attention.cu`` on the tensor cores
-    (``wgmma``: bf16 products in bf16, f32 products as three TF32
-    products, 3xTF32), within 2e-4 (f32) and 3e-2 (bf16) of the plain
-    version.
+    (``wgmma``: bf16 Q K^T in one bf16 product and P V in two, P split
+    into bf16 hi and lo halves as the reference keeps p in f32; f32
+    products as three TF32 products, 3xTF32), within 2e-4 (f32) and 3e-2
+    (bf16) of the plain version.
 
 ``flash_attention_fwd`` dispatches on the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel or raise.  On the

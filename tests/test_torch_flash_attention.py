@@ -120,3 +120,43 @@ def test_masked_logits_are_finite():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 8, 8, 16))
     out = chunked_attention(q, k, v, causal=True, chunk=4)
     assert torch.isfinite(out).all()
+
+
+def _p_parts_attention(q, k, v, parts: int):
+    """The flash kernel's bf16 arithmetic for P V replayed in PyTorch
+    (``csrc/flash_attention.cu:pv``): P rounded to bf16 once (``parts``
+    1) or in two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), summed in
+    f32; causal, one chunk."""
+    sq, d = q.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * d ** -0.5, k.float())
+    s = s.masked_fill(torch.ones(sq, sq, dtype=torch.bool).triu(1), NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    pp = p.to(torch.bfloat16).float()
+    if parts == 2:
+        pp = pp + (p - pp).to(torch.bfloat16).float()
+    return (torch.einsum("bhqk,bhkd->bhqd", pp, v.float()) / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def test_bf16_p_in_two_parts_keeps_the_references_precision():
+    """The reference's kernel takes bf16 q, k, v to f32 and keeps p in f32
+    (``src/repro/kernels/flash_attention.py:_flash_fwd_kernel``); the CUDA
+    kernel's bf16 P V takes P as two bf16 parts, hi = bf16(p) and lo =
+    bf16(p - hi).  Replayed here: hi + lo is p within 2^-16 of p where hi
+    alone errs by up to 2^-9, and the attention with P in two parts rounds
+    to the JAX package's bf16 output in all but a few elements, where P in
+    one part parts from it in many (the card: 0.26% against 39%)."""
+    p = torch.rand(1 << 16) + 1e-3
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert float(((hi + lo - p).abs() / p).max()) <= 2.0 ** -16
+    assert float(((hi - p).abs() / p).max()) > 2.0 ** -10
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 4, 256, 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    want = np.asarray(jops.attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                                       for t in (q, k, v)), causal=True, impl="xla")
+                      .astype(jnp.float32))
+    differ = {n: float((_p_parts_attention(q, k, v, n).float().numpy() != want).mean())
+              for n in (1, 2)}
+    assert differ[2] < 0.01 < 0.1 < differ[1], differ

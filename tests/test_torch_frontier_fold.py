@@ -65,7 +65,7 @@ LAUNCHER_LINES = [
     "if (dim & 1)",
     "d = __fadd_rn(d, term<METRIC>(q[dim - 1], __ldg(ev + dim - 1)));",
 ]
-NAMED_DIMS = [129, 384, 896, 1023, 2048, 3072, 4096, 7168, 8192]
+NAMED_DIMS = [129, 384, 896, 1023, 2048, 3072, 4096, 6144, 7168, 8192]
 SAMPLED_DIMS = sorted(set(np.random.default_rng(14).integers(129, 8193, 12).tolist()
                           + [256 * int(m) for m in
                              np.random.default_rng(15).integers(1, 33, 4)]))
@@ -183,6 +183,9 @@ def test_plan_covers_each_end_of_the_fold():
     assert [_vec(d) for d in (2048, 896, 1023, 3072, 129, 132)] == [4, 4, 1, 4, 1, 1]
     assert plans[(1023, 1)] == (0, 0, 511)
     assert plans[(3072, 4)] == (3, 3, 384)
+    # the served key widths of grok-1 and yi (run_lm_archs): the buffer
+    # after 4 and 3 register levels, 3 and 7 slots a lane
+    assert plans[(6144, 4)] == (4, 3, 384) and plans[(7168, 4)] == (3, 7, 896)
     assert plans[(129, 1)] == (2, 1, 0)            # with the odd tail
     assert plans[(8192, 4)] == (MAX_REG_LEVELS, 64 >> MAX_REG_LEVELS, 8192 >> MAX_REG_LEVELS)
 

@@ -295,6 +295,80 @@ def test_bf16_weights_convert_and_match_jax():
     assert {n.rsplit(".", 1)[1] for n in f32} == {"router", "A_log", "D"}
 
 
+def test_bf16_gqa_model_matches_jax():
+    """yi-34b, which ``chip_smoke.py`` runs in bf16 (param and compute
+    dtype), at smoke size with its GQA group of 7 (14 query heads over 2
+    KV heads): logits within 2 bf16 ulps of the largest |logit| of the JAX
+    package's."""
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16", n_heads=14, n_kv_heads=2)
+    jcfg, jparams, cfg, params = _pair("yi-34b", **bf16)
+    batch = _batch(cfg)
+    want, _ = JM.forward(jparams, jcfg, _jnp(batch))
+    want = np.asarray(want.astype(jax.numpy.float32))
+    got, _ = M.forward(params, cfg, batch)
+    assert got.dtype == torch.bfloat16
+    top = float(np.abs(want).max())
+    tol = 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+def test_bf16_moe_layer_matches_jax():
+    """grok-1-314b's MoE FFN in bf16, top-2 of 8 at capacity factor 1.25:
+    each layer's ``moe_apply`` against the reference's on the same bf16
+    input and weights, y within 2 bf16 ulps of the largest |y| and the aux
+    values (the load-balancing and z losses, the dropped share) equal.  A
+    whole bf16 model is not held here: its router input carries the two
+    frameworks' bf16 roundings, and a near tie routes a token apart."""
+    from repro.models import moe as JMoE
+    from repro_torch.models import moe as moe_mod
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg, jparams, cfg, params = _pair("grok-1-314b", **bf16)
+    assert (cfg.n_experts, cfg.experts_per_token) == (8, 2)
+    rng = np.random.default_rng(5)
+    # one direction shared by every token skews the routing, so that some
+    # experts overflow their capacity and drop
+    x = (rng.normal(size=(2, 24, cfg.d_model))
+         + 3 * rng.normal(size=(1, 1, cfg.d_model))).astype(np.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    jx = jax.numpy.asarray(tx.float().numpy()).astype(jax.numpy.bfloat16)
+    moe_apply = jax.jit(JMoE.moe_apply, static_argnums=1)
+    for layer in range(cfg.n_layers):
+        jp = jax.tree.map(lambda a: a[layer], jparams["blocks"][0]["moe"])
+        want, jaux = moe_apply(jp, jcfg, jx)
+        want = np.asarray(want.astype(jax.numpy.float32))
+        got, aux = moe_mod.moe_apply(params.blocks[layer].ffn, cfg, tx)
+        assert got.dtype == torch.bfloat16
+        top = float(np.abs(want).max())
+        tol = 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+        assert 0 < float(aux["drop_frac"]) == float(jaux["drop_frac"])
+        for k in ("lb_loss", "z_loss"):
+            assert float(aux[k]) == pytest.approx(float(jaux[k]), rel=1e-5), k
+
+
+def test_vlm_prefill_step_matches_jax():
+    """internvl2-1b's prefill through ``make_prefill_step``: the vision
+    stub's image embeddings ahead of the tokens (``model_batch``'s), the
+    logits [b, n_img + s, V] within 1e-4 of the JAX package's prefill step
+    on a (1, 1) mesh."""
+    from repro.configs.base import ShapeSpec
+    from repro.serve.serve_step import make_prefill_step as jax_prefill_step
+    from repro_torch.data.pipeline import DataConfig, model_batch
+    from repro_torch.serve.serve_step import make_prefill_step
+    jcfg, jparams, cfg, params = _pair("internvl2-1b")
+    n_img, s = cfg.n_image_tokens, 24
+    batch = {k: v for k, v in model_batch(cfg, DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=n_img + s, global_batch=2), 0).items()
+        if k != "labels"}
+    assert batch["tokens"].shape == (2, s) and batch["image_embeds"].shape == (2, n_img, 64)
+    mesh = jax.make_mesh((1, 1), ("data", "model"))
+    fn, _ = jax_prefill_step(jcfg, mesh, ShapeSpec("prefill", n_img + s, 2, "prefill"))
+    want = np.asarray(fn(jparams, _jnp(batch)))
+    got = make_prefill_step(cfg)(params, batch)
+    assert got.shape == (2, n_img + s, cfg.padded_vocab) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_family_init_matches_the_converted_tree(arch, dtype):
@@ -340,7 +414,7 @@ def test_exact_param_counts_of_the_recurrent_and_encdec_families(arch, exact, cf
     """At full size on the meta device the port's parameters equal the
     reference's ``exact_param_count``; ``cfg.param_count`` (the reference's
     copy, left as it is) differs, and ``chip_smoke.py`` pins the exact
-    count."""
+    count of what its phase runs (xlstm-1.3b: one 8-layer period of it)."""
     from repro.configs import get_config as jax_get_config
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
@@ -350,8 +424,11 @@ def test_exact_param_counts_of_the_recurrent_and_encdec_families(arch, exact, cf
         cfg, torch.Generator(), "meta")
     assert M.param_count(meta) == JM.exact_param_count(jax_get_config(arch)) == exact
     assert cfg.param_count == cfg_count
-    key = "audio" if cfg.is_encdec else "xlstm"
-    assert chip_smoke.LM_FAMILIES_FULL[key]["params"] == exact
+    fam = chip_smoke.LM_FAMILIES_FULL["audio" if cfg.is_encdec else "xlstm"]
+    if not fam["overrides"]:
+        assert fam["params"] == exact
+    assert fam["params"] == JM.exact_param_count(
+        dataclasses.replace(jax_get_config(arch), **fam["overrides"]))
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS + ["qwen2.5-3b"])

@@ -2,16 +2,17 @@
 vision-stub models over gloo at world size 4 on the CPU, against the JAX
 package's one-device train step and the port's one-device serving.
 
-Four ranks start once for the module (``tests/_gloo_ranks.py``, the code
-in ``tests/_sharded_families.py``) and run every case there: the smoke
+Four ranks start once in a test run, not once per pytest-xdist worker
+(``tests/_once.py``; ``tests/_gloo_ranks.py``, the code in
+``tests/_sharded_families.py``), and run every case there: the smoke
 configs of jamba-v0.1-52b, xlstm-1.3b and internvl2-1b on a (2, 2)
 {data, model} mesh, whisper-tiny on (2, 2), an xlstm with 2 heads on a
 (1, 4) mesh (each head spans two ranks) and a whisper with 6 heads on
 (1, 4) (the table replicates ``wq``), with weights from the JAX init
 carried as an ``.npz`` of the reference's tree; then ``launch/serve --mesh
 host --knn`` and ``launch/train --mesh host`` of each of the four
-families.  The JAX steps and the port's one-device runs are computed here
-in module fixtures.
+families.  The JAX inits and steps are computed here, once in a test run
+beside the ranks; the port's one-device runs in a module fixture.
 
 Tolerances, each stated where it is used: the loss and the grad norm
 within 1e-5 relative of the JAX step's (sums over ranks change the order
@@ -38,8 +39,9 @@ torch = pytest.importorskip("torch")
 pytestmark = pytest.mark.timeout(900)
 
 import _sharded_families as F  # noqa: E402
-from _gloo_ranks import run_ranks  # noqa: E402
+from _gloo_ranks import WORLD, finish_ranks, start_ranks  # noqa: E402
 from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
+from _once import claim, once, shared_root, worker_offset  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 from repro.configs.all_archs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.dist import checkpoint as jckpt  # noqa: E402
@@ -63,51 +65,94 @@ def jax_config(name: str):
     return dataclasses.replace(jax_smoke_config(c["arch"]), **c["over"])
 
 
-@pytest.fixture(scope="module")
-def jax_inits(cleared_jax_caches):
-    return {n: jax.tree.map(np.asarray, JM.init_params(jax_config(n), jax.random.PRNGKey(1)))
-            for n in NAMES}
+RANK_CODE = textwrap.dedent(f"""
+    import sys
+    sys.path.insert(0, {str(ROOT / "tests")!r})
+    import _sharded_families
+    _sharded_families.run_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3])
+""")
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory, jax_inits):
-    d = tmp_path_factory.mktemp("sharded_families")
-    for n, tree in jax_inits.items():
-        np.savez(d / f"init_{n}.npz", **F.flat_tree(tree))
-        jckpt.save_checkpoint(str(d / f"ck_ref_{n}"), 2, {"params": tree})
-    (d / "plan.json").write_text(json.dumps({"cases": NAMES}))
-    code = textwrap.dedent(f"""
-        import sys
-        sys.path.insert(0, {str(ROOT / "tests")!r})
-        import _sharded_families
-        _sharded_families.run_rank(int(sys.argv[1]), sys.argv[2], sys.argv[3])
-    """)
-    return dict(out=run_ranks(code, d, timeout=800), dir=d)
+def _write_init(d: Path, n: str) -> None:
+    """The JAX init of case ``n``, as ``init_<case>.npz`` and as the
+    reference's checkpoint of it."""
+    tree = jax.tree.map(np.asarray, JM.init_params(jax_config(n), jax.random.PRNGKey(1)))
+    np.savez(d / f"init_{n}.npz", **F.flat_tree(tree))
+    jckpt.save_checkpoint(str(d / f"ck_ref_{n}"), 2, {"params": tree})
 
 
-@pytest.fixture(scope="module")
-def jax_steps(cleared_jax_caches, jax_inits):
-    """The JAX package's one-device step of each case from the same
-    weights and batch: (params after by path, metrics, the clipped
-    gradients by path).  The step's first moments from zero are (1 - b1)
-    times the clipped gradients, which gives them without a second
+def _write_jax_step(d: Path, n: str) -> None:
+    """The JAX package's one-device step of case ``n`` from the same
+    weights and batch: the params after it by path (``step_<case>.npz``),
+    its metrics (``metrics_<case>.json``) and the clipped gradients by path
+    (``clipped_<case>.npz``).  The step's first moments from zero are (1 -
+    b1) times the clipped gradients, which gives them without a second
     program."""
-    out = {}
-    mesh = jax.make_mesh((1, 1), ("data", "model"))
     opt = JO.AdamWConfig(**F.OPT)
-    settings = JT.TrainSettings(opt=opt)
-    for n in NAMES:
-        jcfg = jax_config(n)
-        bt = {k: jnp.asarray(v) for k, v in F.batch(smoke_config_of(n), 3).items()}
-        jp = jax.tree.map(jnp.asarray, jax_inits[n])
-        step, _ = JT.make_train_step(jcfg, mesh, {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
-                                                  for k, v in bt.items()}, settings)
-        p2, opt2, m = jax.jit(step)(jp, JO.init_opt_state(jp), bt)
-        clipped = jax.tree.map(lambda mu: np.asarray(mu) / (1 - opt.b1), opt2.mu)
-        out[n] = (F.flat_tree(jax.tree.map(np.asarray, p2)), {k: float(v) for k, v in m.items()},
-                  F.flat_tree(clipped))
+    bt = {k: jnp.asarray(v) for k, v in F.batch(smoke_config_of(n), 3).items()}
+    jp = jax.tree.map(jnp.asarray, F.unflat_tree(dict(np.load(d / f"init_{n}.npz"))))
+    step, _ = JT.make_train_step(jax_config(n), jax.make_mesh((1, 1), ("data", "model")),
+                                 {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+                                  for k, v in bt.items()}, JT.TrainSettings(opt=opt))
+    p2, opt2, m = jax.jit(step)(jp, JO.init_opt_state(jp), bt)
+    np.savez(d / f"step_{n}.npz", **F.flat_tree(jax.tree.map(np.asarray, p2)))
+    np.savez(d / f"clipped_{n}.npz", **F.flat_tree(
+        jax.tree.map(lambda mu: np.asarray(mu) / (1 - opt.b1), opt2.mu)))
+    (d / f"metrics_{n}.json").write_text(json.dumps({k: float(v) for k, v in m.items()}))
+
+
+@pytest.fixture(scope="module")
+def shared(tmp_path_factory, cleared_jax_caches):
+    """The directory that the JAX inits, the four ranks' results (their
+    ``out.<rank>.npz`` and mesh checkpoints) and the JAX steps fill, each
+    once in a test run, whatever the number of workers
+    (``tests/_once.py``): every worker takes the inits of the cases nobody
+    has done, each from its own offset; then the worker that takes the
+    ranks starts them, and every worker takes the JAX steps the same way
+    while they run."""
+    root = shared_root(tmp_path_factory)
+    d = root / "sharded_families"
+    d.mkdir(exist_ok=True)
+    k0 = worker_offset(len(NAMES))
+    mine_first = NAMES[k0:] + NAMES[:k0]
+    for n in mine_first:
+        once(root, f"sf_init_{n}", lambda n=n: _write_init(d, n))
+
+    def start():
+        (d / "plan.json").write_text(json.dumps({"cases": NAMES}))
+        return start_ranks(RANK_CODE, d)
+
+    with claim(root, "sf_ranks") as mine:
+        procs = start() if mine else None
+        try:
+            for n in mine_first:
+                once(root, f"sf_step_{n}", lambda n=n: _write_jax_step(d, n))
+        finally:
+            if procs is not None:
+                finish_ranks(procs, d, timeout=800)
+    once(root, "sf_ranks", lambda: finish_ranks(start(), d, timeout=800))
     jax.clear_caches()
-    return out
+    return d
+
+
+@pytest.fixture(scope="module")
+def jax_inits(shared):
+    return {n: F.unflat_tree(dict(np.load(shared / f"init_{n}.npz"))) for n in NAMES}
+
+
+@pytest.fixture(scope="module")
+def ranks(shared):
+    return dict(out=[dict(np.load(shared / f"out.{r}.npz")) for r in range(WORLD)],
+                dir=shared)
+
+
+@pytest.fixture(scope="module")
+def jax_steps(shared):
+    """Each case's JAX step (``_write_jax_step``): (params after by path,
+    metrics, the clipped gradients by path)."""
+    return {n: (dict(np.load(shared / f"step_{n}.npz")),
+                json.loads((shared / f"metrics_{n}.json").read_text()),
+                dict(np.load(shared / f"clipped_{n}.npz"))) for n in NAMES}
 
 
 def smoke_config_of(name: str):

@@ -22,6 +22,7 @@ whole gradient (one shared scale); the int8 step's parameters within 2 lr
 and its residuals within one quantisation step of the one-device step's.
 """
 import dataclasses
+import json
 import textwrap
 from pathlib import Path
 
@@ -35,8 +36,9 @@ torch = pytest.importorskip("torch")
 # the rank subprocesses also stop at their own communicate() timeouts
 pytestmark = pytest.mark.timeout(600)
 
-from _gloo_ranks import WORLD, run_ranks  # noqa: E402
+from _gloo_ranks import WORLD, finish_ranks, start_ranks  # noqa: E402
 from _jax_caches import cleared_jax_caches  # noqa: E402,F401  (autouse)
+from _once import claim, once, shared_root  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 from repro.configs.all_archs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.dist import checkpoint as jckpt  # noqa: E402
@@ -289,16 +291,12 @@ def flat_spec(specs, prefix=""):
     return {k2: v2 for k, v in items for k2, v2 in flat_spec(v, f"{prefix}{k}/").items()}
 
 
-@pytest.fixture(scope="module")
-def jax_init():
+def _write_inputs(d: Path) -> None:
+    """The JAX init and the batches the ranks read, and the reference's
+    elastic-reshard checkpoint (``scenario_elastic_reshard``'s weights)."""
     jcfg, _ = configs()
-    return jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(1)))
-
-
-@pytest.fixture(scope="module")
-def gloo(tmp_path_factory, jax_init):
-    d = tmp_path_factory.mktemp("train_sharded")
-    np.savez(d / "init.npz", **flat_tree(jax_init))
+    init = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(1)))
+    np.savez(d / "init.npz", **flat_tree(init))
     np.savez(d / "batch.npz", **batch())
     rng = np.random.default_rng(4)
     np.savez(d / "moe_batch.npz", **{k: rng.integers(0, 512, (B, S)).astype(np.int32)
@@ -306,27 +304,68 @@ def gloo(tmp_path_factory, jax_init):
     p7 = JM.init_params(jax_smoke_config("qwen2.5-3b"), jax.random.PRNGKey(7))
     np.savez(d / "elastic.npz", **flat_tree(jax.tree.map(np.asarray, p7)))
     jckpt.save_checkpoint(str(d / "ck_ref"), 3, {"params": p7})
-    code = textwrap.dedent(_RANK.format(tests=str(ROOT / "tests"), world=WORLD))
-    ranks = run_ranks(code, d)
-    return dict(ranks=ranks, dir=d, p7=p7)
 
 
-@pytest.fixture(scope="module")
-def jax_step(jax_init):
+def _write_jax_step(d: Path) -> None:
     """The JAX package's one-device step from the same weights and batch:
-    (params after, metrics, grads, first moments after; by path)."""
+    the params after it, the gradients and the first moments after it by
+    path (``jax_p2``/``jax_grads``/``jax_mu.npz``), its metrics
+    (``jax_metrics.json``)."""
     jcfg, _ = configs()
     bt = {k: jnp.asarray(v) for k, v in batch().items()}
     settings = JT.TrainSettings(opt=JO.AdamWConfig(**OPT))
-    jparams = jax.tree.map(jnp.asarray, jax_init)
+    jparams = jax.tree.map(jnp.asarray, unflat_tree(dict(np.load(d / "init.npz"))))
     _, jgrads = jax.value_and_grad(JT.loss_and_aux, has_aux=True)(jparams, jcfg, bt, settings)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     step, _ = JT.make_train_step(jcfg, mesh, {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
                                               for k, v in bt.items()}, settings)
     p2, opt2, m = jax.jit(step)(jparams, JO.init_opt_state(jparams), bt)
-    return (flat_tree(jax.tree.map(np.asarray, p2)), m,
-            flat_tree(jax.tree.map(np.asarray, jgrads)),
-            flat_tree(jax.tree.map(np.asarray, opt2.mu)))
+    for name, tree in (("p2", p2), ("grads", jgrads), ("mu", opt2.mu)):
+        np.savez(d / f"jax_{name}.npz", **flat_tree(jax.tree.map(np.asarray, tree)))
+    (d / "jax_metrics.json").write_text(json.dumps({k: float(v) for k, v in m.items()}))
+
+
+@pytest.fixture(scope="module")
+def shared(tmp_path_factory, cleared_jax_caches):
+    """The directory that the JAX inputs, the four ranks' results and the
+    JAX step fill, each once in a test run, whatever the number of workers
+    (``tests/_once.py``): the inputs first; then the worker that takes the
+    ranks starts them, and the JAX step runs while they do."""
+    root = shared_root(tmp_path_factory)
+    d = root / "train_sharded"
+    d.mkdir(exist_ok=True)
+    code = textwrap.dedent(_RANK.format(tests=str(ROOT / "tests"), world=WORLD))
+    once(root, "tsh_inputs", lambda: _write_inputs(d))
+    with claim(root, "tsh_ranks") as mine:
+        procs = start_ranks(code, d) if mine else None
+        try:
+            once(root, "tsh_jax_step", lambda: _write_jax_step(d))
+        finally:
+            if procs is not None:
+                finish_ranks(procs, d)
+    once(root, "tsh_ranks", lambda: finish_ranks(start_ranks(code, d), d))
+    jax.clear_caches()
+    return d
+
+
+@pytest.fixture(scope="module")
+def jax_init(shared):
+    return unflat_tree(dict(np.load(shared / "init.npz")))
+
+
+@pytest.fixture(scope="module")
+def gloo(shared):
+    return dict(ranks=[dict(np.load(shared / f"out.{r}.npz")) for r in range(WORLD)],
+                dir=shared, p7=unflat_tree(dict(np.load(shared / "elastic.npz"))))
+
+
+@pytest.fixture(scope="module")
+def jax_step(shared):
+    """``_write_jax_step``'s results: (params after, metrics, grads, first
+    moments after; by path)."""
+    load = lambda name: dict(np.load(shared / f"jax_{name}.npz"))
+    return (load("p2"), json.loads((shared / "jax_metrics.json").read_text()), load("grads"),
+            load("mu"))
 
 
 def _params_close(got: dict, tag: str, jp2: dict, jgrads: dict, gnorm: float, lr: float):

@@ -211,7 +211,9 @@ def test_bf16_weights_convert_keep_their_f32_leaves_and_match_jax():
 def test_exact_param_count_at_full_width():
     """xlstm-1.3b on the meta device: exactly the reference's
     ``exact_param_count``, 3,609,147,728 (``cfg.param_count``, the
-    reference's copy, says 3,639,533,568), and ``chip_smoke.py``'s pin."""
+    reference's copy, says 3,639,533,568), and ``chip_smoke.py``'s pin of
+    its L3 phase, one 8-layer period of it: the reference's count of that
+    period."""
     from repro.configs import get_config as jax_get_config
     from repro_torch.models import transformer
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -220,7 +222,10 @@ def test_exact_param_count_at_full_width():
     meta = transformer.init_lm(cfg, torch.Generator(), "meta")
     assert M.param_count(meta) == JM.exact_param_count(jax_get_config(ARCH)) == 3_609_147_728
     assert cfg.param_count == 3_639_533_568
-    assert chip_smoke.LM_FAMILIES_FULL["xlstm"]["params"] == 3_609_147_728
+    period = dataclasses.replace(jax_get_config(ARCH), n_layers=8)
+    assert chip_smoke.LM_FAMILIES_FULL["xlstm"]["overrides"] == {"n_layers": 8}
+    assert chip_smoke.LM_FAMILIES_FULL["xlstm"]["params"] == JM.exact_param_count(period) \
+        == 773_230_648
     assert [b.kind for b in meta.blocks] == (["mlstm"] * 7 + ["slstm"]) * 6
     assert all(b.norm2 is None and b.ffn is None for b in meta.blocks)
     assert X._f_up(2048) == 2816
