@@ -20,15 +20,21 @@ CUDA card, like ``chip_smoke.py``, whose helpers it uses.
      more than one bf16 ulp (under 0.1%), and the kernel's ms.
   2. The bf16 prefills of ``chip_smoke.LM_ARCHS_FULL`` (yi-34b, 60 layers,
      and grok-1-314b at 4 layers) at b=4 x 2048, each run
-     against the plain attention's as ``lm_family`` holds it: the share of
-     MoE routings that differ (bound 1e-3), the max |logit| error on the
-     tokens whose routing agreed against two bf16 ulps of max |plain
-     logit|, and the argmax where the plain top-1 leads by more than twice
-     that.
-  3. yi-34b layer by layer, each build against the plain run: after each
+     against the plain attention's: the share of MoE routings that differ
+     (against 1e-3), the max |logit| error on the tokens whose routing
+     agreed against two bf16 ulps of max |plain logit|, and the argmax
+     where the plain top-1 leads by more than twice that (``lm_family``'s
+     end-to-end backstop takes the larger of each bound and twice the
+     ``reordered256`` run's value).
+  3. Both layer by layer, each build against the plain run: after each
      layer, the largest |difference| of the residual stream in bf16 ulps
      of its largest |value| (``cum_ulps``), and the same for that layer
-     alone, run on the plain run's input (``local_ulps``).
+     alone, run on the plain run's input (``local_ulps``), with the rest
+     of ``chip_smoke.layer_rows``' row for it: the attention's outputs
+     against the plain version's on the same q, k, v (the share that
+     rounds apart, the share apart by more than one ulp) and, on MoE
+     layers, the share of routings that differ.  ``chip_smoke.py`` holds
+     the current kernel's local rows to its per-layer bounds.
 
 Prints one JSON line per row.
 """
@@ -97,72 +103,49 @@ def kernel_rows(fns: dict, chip_smoke) -> None:
             continue
         rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").bfloat16()
         q, k, v = rnd(b, h, sq, d), rnd(b, hk, sk, d), rnd(b, hk, sk, d)
-        want = flash_attention_torch(q, k, v, causal=causal).float()
-        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+        want = flash_attention_torch(q, k, v, causal=causal)
         row = {}
         for name, fn in fns.items():
-            diff = (fn(q, k, v, causal=causal).float() - want).abs()
-            row[name] = dict(max_abs_err=float(diff.max()),
-                             differ_share=float((diff > 0).float().mean()),
-                             over_1ulp_share=float((diff > ulp).float().mean()))
+            got = fn(q, k, v, causal=causal)
+            row[name] = dict(max_abs_err=float((got.float() - want.float()).abs().max()),
+                             **chip_smoke.rounding_shares(got, want))
             if not name.startswith("reordered"):
                 row[name]["ms"] = time_ms(lambda: fn(q, k, v, causal=causal), iters=10)
-            row[name]["passes_phase_8"] = (row[name]["differ_share"] < 1e-2
-                                           and row[name]["over_1ulp_share"] < 1e-3)
+            row[name]["passes_phase_8"] = chip_smoke.within_rounding(row[name])
+            del got
         print(json.dumps({"phase": "flash_bf16_parts", "case": case,
                           "shape": [b, h, hk, sq, sk, d], "rows": row}), flush=True)
-        del q, k, v, want, ulp
+        del q, k, v, want
         torch.cuda.empty_cache()
 
 
-def layer_rows(fns: dict, mcfg, params, batch) -> None:
-    """Where the runs part: the plain run's input to every layer (and the
-    last layer's output) kept on the host, then each build's run compared
-    with it after every layer."""
+def layer_rows(fns: dict, mcfg, params, batch, chip_smoke) -> None:
+    """Where the runs part, through ``chip_smoke``'s per-layer helpers: the
+    plain run's input to every layer (and the last layer's output) kept
+    on the host (``layer_inputs``); then each build's whole run compared
+    with it after every layer (``cum_ulps``), and each layer run alone on
+    the plain run's input (``layer_rows``: ``local_ulps``, with the
+    attention's rounding shares and, on MoE layers, the routing share)."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_torch
-    from repro_torch.models import transformer as T
-    from repro_torch.serve.serve_step import make_prefill_step
 
-    block_apply = T.block_apply
-    ulp = lambda x: 2.0 ** (torch.floor(torch.log2(x)) - 7)
-    plain_in = []
-
-    def keep(blk, cfg, x, pos, attention=None, routing=None, tp=None):
-        plain_in.append(x.cpu())
-        out = block_apply(blk, cfg, x, pos, attention, routing, tp)
-        if len(plain_in) == cfg.n_layers:
-            plain_in.append(out[0].cpu())
-        return out
-
-    def compare(rows):
-        def layer(blk, cfg, x, pos, attention=None, routing=None, tp=None):
-            i = len(rows)
-            out = block_apply(blk, cfg, x, pos, attention, routing, tp)
-            want = plain_in[i + 1].to(x.device)
-            alone = block_apply(blk, cfg, plain_in[i].to(x.device), pos, attention, routing, tp)
-            top = want.float().abs().max()
-            rows.append(dict(layer=i, top=float(top), cum_ulps=float(
-                (out[0].float() - want.float()).abs().max() / ulp(top)), local_ulps=float(
-                (alone[0].float() - want.float()).abs().max() / ulp(top))))
-            return out
-        return layer
-
-    try:
-        T.block_apply = keep
-        make_prefill_step(mcfg, _attention=flash_attention_torch)(params, batch)
-        for name in ("two_parts", "one_part"):
-            rows = []
-            T.block_apply = compare(rows)
-            make_prefill_step(mcfg, _attention=fns[name])(params, batch)
-            T.block_apply = block_apply
-            first = next((r["layer"] for r in rows if r["cum_ulps"] > 0), None)
-            print(json.dumps({"phase": "layers_bf16_parts", "arch": mcfg.name, "build": name,
-                              "first_layer_apart": first, "rows": rows}), flush=True)
-            torch.cuda.empty_cache()
-    finally:
-        T.block_apply = block_apply
+    plain = chip_smoke.layer_inputs(mcfg, params, batch, flash_attention_torch)
+    local = chip_smoke.layer_rows(mcfg, params, batch, fns, plain)
+    for name, fn in fns.items():
+        run, _ = chip_smoke.layer_inputs(mcfg, params, batch, fn)
+        rows = []
+        for r in local[name]:
+            i, want = r["layer"], plain[0][r["layer"] + 1].float()
+            cum = float((run[i + 1].float() - want).abs().max())
+            rows.append(dict(r, cum_ulps=cum / chip_smoke.bf16_ulp(r["top"]),
+                             local_ulps=r["layer_ulps"]))
+        del run
+        first = next((r["layer"] for r in rows if r["cum_ulps"] > 0), None)
+        print(json.dumps({"phase": "layers_bf16_parts", "arch": mcfg.name, "build": name,
+                          "first_layer_apart": first,
+                          "largest": chip_smoke.largest(rows), "rows": rows}), flush=True)
+        torch.cuda.empty_cache()
 
 
 def prefill_rows(fns: dict, chip_smoke) -> None:
@@ -210,8 +193,7 @@ def prefill_rows(fns: dict, chip_smoke) -> None:
                           "logit_bound": tol, "bound_rule": rule, "rows": rows}), flush=True)
         del plain, rp
         torch.cuda.empty_cache()
-        if key == "yi":
-            layer_rows(fns, mcfg, params, batch)
+        layer_rows(fns, mcfg, params, batch, chip_smoke)
         del params, batch
         torch.cuda.empty_cache()
 
